@@ -1,0 +1,231 @@
+"""Shared building blocks of the port's model zoo (rovr_tpu/models/layers.py).
+
+Layout: modules take and return NCHW logical tensors. The public functions
+of the model files keep the JAX package's NHWC layout and permute at their
+boundary, which on a contiguous NHWC tensor yields NCHW in channels_last
+memory: cuDNN's preferred layout, and exactly the NHWC buffer K1 reads.
+
+Parameters stay float32; each conv casts its input and weights to its
+compute dtype, as flax's `dtype=` does.
+
+BatchStatNorm keeps the JAX package's semantics: it normalizes by the
+CURRENT batch statistics (train-mode BatchNorm forever, biased variance) and
+holds no running state.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rovr_torch.ops import conv as k1
+
+
+class BatchStatNorm(nn.Module):
+    """Normalize by current batch statistics over every axis but channels
+    (axis 1): var = E[x^2] - E[x]^2, eps 1e-5, f32 math.
+
+    `per_sample=True` leaves the batch axis out of the statistics, so a
+    sample's output does not depend on its batchmates."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None, per_sample: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.eps = eps
+        self.dtype = dtype
+        self.per_sample = per_sample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.per_sample and x.dim() < 3:
+            raise ValueError(
+                "per_sample stats need at least one non-batch reduction axis"
+            )
+        dims = tuple(range(2, x.dim()))
+        if not self.per_sample:
+            dims = (0,) + dims
+        x32 = x.float()
+        mean = x32.mean(dims, keepdim=True)
+        var = (x32 * x32).mean(dims, keepdim=True) - mean * mean
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
+            + self.bias.view(shape)
+        return y.to(x.dtype if self.dtype is None else self.dtype)
+
+
+def max_pool(
+    x: torch.Tensor,
+    window: Tuple[int, int],
+    strides: Optional[Tuple[int, int]] = None,
+    padding: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None,
+) -> torch.Tensor:
+    """NCHW max pool, VALID over the (optionally -inf-padded) input, as the
+    JAX package's `max_pool`. A window larger than the input gives an empty
+    output, as flax does, where torch's pool would raise."""
+    strides = tuple(strides or window)
+    window = tuple(window)
+    (pt, pb), (pl, pr) = padding or ((0, 0), (0, 0))
+    h, w = x.shape[-2] + pt + pb, x.shape[-1] + pl + pr
+    oh = (h - window[0]) // strides[0] + 1
+    ow = (w - window[1]) // strides[1] + 1
+    if oh <= 0 or ow <= 0:
+        return x.new_empty(x.shape[:-2] + (max(oh, 0), max(ow, 0)))
+    if pt == pb and pl == pr and 2 * pt <= window[0] and 2 * pl <= window[1]:
+        # torch pads a pool with -inf implicitly
+        return F.max_pool2d(x, window, strides, padding=(pt, pl))
+    x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(x, window, strides)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype` (None: the input's dtype) with
+    float32 parameters, as flax's nn.Conv(dtype=..., param_dtype=f32)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype or x.dtype
+        bias = None if self.bias is None else self.bias.to(cdt)
+        return F.conv2d(x.to(cdt), self.weight.to(cdt), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d computing in `compute_dtype` with f32 params."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype or x.dtype
+        return F.conv_transpose2d(
+            x.to(cdt), self.weight.to(cdt), self.bias.to(cdt), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation,
+        )
+
+
+class CanvasConv3x3(nn.Module):
+    """3x3 SAME conv on the policy's canvas trunk (the JAX class's plain
+    path). `fold_bias_into_norm` skips the bias add: a batch-stat norm
+    follows and cancels it exactly, and the param stays for the checkpoint
+    structure. The JAX class's space-to-depth path is not ported."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None,
+                 fold_bias_into_norm: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+        self.fold_bias_into_norm = fold_bias_into_norm
+        lecun_normal_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        y = F.conv2d(x.to(cdt), self.weight.to(cdt), padding=1)
+        if self.fold_bias_into_norm:
+            return y
+        return y + self.bias.to(cdt).view(1, -1, 1, 1)
+
+
+class FusedConv3x3(nn.Module):
+    """conv3x3(same) + bias + ReLU through K1 (rovr_torch/ops/conv.py).
+
+    `impl`: "auto" launches the CUDA kernel for a CUDA input and runs the
+    plain version for a CPU input; "kernel" demands the CUDA kernel (a CPU
+    input raises); "plain" runs the plain version on any device. The TPU
+    op's profitability envelope (`supported`) does not carry over: on CUDA
+    the kernel is always used."""
+
+    def __init__(self, in_features: int, features: int, relu: bool = True,
+                 dtype: Optional[torch.dtype] = None, impl: str = "auto"):
+        super().__init__()
+        if impl not in ("auto", "kernel", "plain"):
+            raise ValueError(f"impl must be auto, kernel or plain, got {impl!r}")
+        self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.relu = relu
+        self.dtype = dtype
+        self.impl = impl
+        lecun_normal_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        xh = x.to(cdt).permute(0, 2, 3, 1).contiguous()       # NHWC
+        kernel = self.weight.to(cdt).permute(2, 3, 1, 0).contiguous()  # HWIO
+        if self.impl == "plain":
+            y = k1.fused_conv3x3_plain(xh, kernel, self.bias, self.relu)
+        elif self.impl == "kernel" and not xh.is_cuda:
+            raise ValueError("FusedConv3x3(impl='kernel') needs a CUDA input")
+        else:
+            y = k1.fused_conv3x3(xh, kernel, self.bias, self.relu)
+        return y.permute(0, 3, 1, 2)
+
+
+class MLP(nn.Sequential):
+    """Stack of Linear layers with NO activations between them (the policy's
+    final_fc chain of bare linears), float32."""
+
+    def __init__(self, in_features: int, dims: Sequence[int]):
+        layers = []
+        for d in dims:
+            layers.append(nn.Linear(in_features, d))
+            in_features = d
+        super().__init__(*layers)
+
+
+def standardize(x: torch.Tensor, dim, eps: float, keepdim: bool = True):
+    """(x - mean) / (std + eps) with unbiased std; sqrt(var + 1e-12) keeps
+    the gradient of a constant column finite (layers.py rationale)."""
+    x32 = x.float()
+    mean = x32.mean(dim, keepdim=keepdim)
+    var = x32.var(dim, keepdim=keepdim, correction=1)
+    return ((x32 - mean) / (torch.sqrt(var + 1e-12) + eps)).to(x.dtype)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default kernel init: a normal truncated at +-2 sd, scaled to
+    variance 1/fan_in (fan_in defaults to w[0].numel(), right for OIHW convs
+    and (out, in) linears)."""
+    fan_in = fan_in or w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w.mul_(std)
+
+
+def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
+    """Fresh parameters for `module` drawn as the JAX package's flax modules
+    draw theirs: lecun-normal conv and linear kernels (a transposed conv's
+    fan-in is in*kh*kw), zero biases, norms at ones/zeros, LPIPS lins
+    U(0, 0.1). Returns a state dict on the module's device; the module is
+    untouched."""
+    out = {}
+    for mname, m in module.named_modules():
+        own = list(m.named_parameters(recurse=False)) \
+            + list(m.named_buffers(recurse=False))
+        for pname, t in own:
+            key = f"{mname}.{pname}" if mname else pname
+            new = torch.empty(t.shape, dtype=t.dtype)
+            conv_like = isinstance(m, (nn.Conv2d, nn.Linear, CanvasConv3x3, FusedConv3x3))
+            if pname == "weight" and isinstance(m, nn.ConvTranspose2d):
+                lecun_normal_(new, t.shape[0] * t.shape[2] * t.shape[3], generator)
+            elif pname == "weight" and conv_like:
+                lecun_normal_(new, None, generator)
+            elif pname == "bias" and (conv_like or isinstance(m, nn.ConvTranspose2d)):
+                new.zero_()
+            elif pname.startswith("lin") and t.dim() == 1:
+                new.uniform_(0.0, 0.1, generator=generator)
+            else:
+                new.copy_(t.detach())  # norms: their construction values
+            out[key] = new.to(t.device)
+    return out

@@ -1,0 +1,161 @@
+"""K1: fused 3x3 conv (stride 1, SAME) + bias + ReLU, NHWC, for the UNet.
+
+Replaces `rovr_tpu/ops/pallas/conv.py::_conv_kernel` (reached through
+`_forward` and the public `fused_conv3x3`): y = relu(conv3x3_same(x, W) + b)
+with x NHWC (B,H,W,Cin), W HWIO (3,3,Cin,Cout) in x's dtype, b (Cout,) f32,
+accumulated in f32, bias and ReLU in f32, cast back to x's dtype.
+
+What bounds it on an H100: at the serving shapes (batch 8 at 256^2 frames:
+conv3 (8,64,64,128)->256, conv4 (8,32,32,256)->512, conv5 (8,64,64,512)->256)
+it does 19-77 GFLOP per call on 8-53 MB of operands, some 1,400-2,900
+operations per byte, far above the card's ~295 bf16 operations per byte of
+device memory: the tensor cores bound it, not memory.
+
+What the design does about that (csrc/fused_conv3x3.cu): an implicit GEMM
+(M = B*H*W, N = Cout, K = 9*Cin) on bf16 tensor-core fragments with f32
+accumulation, reading the unpadded input once per tap through a cp.async ring
+with the halo masked to zero in the copy itself: no padded copy, and none of
+the nine materialized shift views the TPU kernel needed. Bias and ReLU run in
+the f32 epilogue before the single bf16 store. It is the simple version
+(WMMA/mma.sync, no wgmma or TMA), so it reaches a fraction of the peak; its
+times stand beside the bound in PERF.md.
+
+`fused_conv3x3` launches the kernel for a CUDA tensor and uses the plain
+version `fused_conv3x3_plain` only for a CPU tensor. There is no fallback: a
+CUDA input the kernel does not take raises. The backward (an
+`autograd.Function`) is the plain version's gradient, as the TPU op's
+backward is the XLA conv's vjp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from rovr_torch.ops import cuda_build
+
+_SOURCE = "fused_conv3x3"
+
+
+def fused_conv3x3_plain(x, kernel, bias, relu: bool = True):
+    """The plain version: the sum of nine shifted (B*H*W, Cin) x (Cin, Cout)
+    products in f32, then bias and ReLU in f32, cast back to x's dtype.
+    The kernel is rounded to x's dtype first, as the TPU op casts it."""
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    k = kernel.to(x.dtype).float()
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin) @ k[dy, dx]
+            acc = tap if acc is None else acc + tap
+    acc = acc + bias.float()
+    if relu:
+        acc = torch.relu(acc)
+    return acc.reshape(b, h, w, cout).to(x.dtype)
+
+
+def check_kernel_args(x, kernel, bias) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    if x.dim() != 4 or kernel.dim() != 4 or bias.dim() != 1:
+        raise ValueError(
+            f"fused_conv3x3: x (B,H,W,Cin), kernel (3,3,Cin,Cout), bias (Cout,);"
+            f" got {tuple(x.shape)}, {tuple(kernel.shape)}, {tuple(bias.shape)}"
+        )
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    if tuple(kernel.shape) != (3, 3, cin, cout) or bias.shape[0] != cout:
+        raise ValueError(
+            f"fused_conv3x3: kernel {tuple(kernel.shape)} / bias "
+            f"{tuple(bias.shape)} do not fit x {tuple(x.shape)}"
+        )
+    if x.dtype != torch.bfloat16 or kernel.dtype != torch.bfloat16:
+        raise TypeError(
+            f"fused_conv3x3 kernel takes bf16 x and kernel, got {x.dtype}, "
+            f"{kernel.dtype}"
+        )
+    if bias.dtype != torch.float32:
+        raise TypeError(f"fused_conv3x3 kernel takes an f32 bias, got {bias.dtype}")
+    if cin % 8 or cout % 8:
+        raise ValueError(
+            f"fused_conv3x3 kernel needs Cin and Cout divisible by 8, got "
+            f"{cin}, {cout}"
+        )
+    if b * h * w == 0 or b * h * w >= 2 ** 31:
+        raise ValueError(f"fused_conv3x3 kernel needs 0 < B*H*W < 2^31, got {b * h * w}")
+    for name, t in (("x", x), ("kernel", kernel), ("bias", bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_conv3x3 kernel needs a contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_conv3x3 kernel needs a 16-byte aligned {name}")
+        if t.device != x.device:
+            raise ValueError(f"fused_conv3x3: {name} is on {t.device}, x on {x.device}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(_SOURCE)
+    fn = lib.rovr_fused_conv3x3_bf16
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.rovr_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rovr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, kernel, bias, relu: bool):
+    check_kernel_args(x, kernel, bias)
+    b, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    lib = _lib()
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rovr_fused_conv3x3_bf16(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            b, h, w, cin, cout, int(relu), stream,
+        )
+    if err:
+        raise RuntimeError(
+            "fused_conv3x3 launch failed: "
+            + lib.rovr_cuda_error_string(err).decode()
+        )
+    fused_conv3x3.launches += 1
+    return y
+
+
+class _FusedConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, bias, relu):
+        ctx.save_for_backward(x, kernel, bias)
+        ctx.relu = relu
+        if x.device.type == "cpu":
+            return fused_conv3x3_plain(x, kernel, bias, relu)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_conv3x3 runs on cuda or cpu, got {x.device}")
+        return _launch(x, kernel, bias, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xs, ks, bs = (t.detach().requires_grad_() for t in (x, kernel, bias))
+            y = fused_conv3x3_plain(xs, ks, bs, ctx.relu)
+            gx, gk, gb = torch.autograd.grad(y, (xs, ks, bs), g)
+        return gx, gk, gb, None
+
+
+def fused_conv3x3(x, kernel, bias, relu: bool = True):
+    """y = relu(conv3x3_same(x, kernel) + bias), NHWC / HWIO.
+
+    x (B,H,W,Cin); kernel (3,3,Cin,Cout); bias (Cout,). A CUDA x launches
+    the kernel (bf16 x and kernel, f32 bias; anything else raises) and adds
+    one to `fused_conv3x3.launches`; a CPU x runs the plain version."""
+    return _FusedConv3x3.apply(x, kernel, bias, relu)
+
+
+fused_conv3x3.launches = 0
