@@ -112,6 +112,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         )
 
 
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` with f32 params, as flax's
+    nn.Dense(dtype=..., param_dtype=f32)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype or torch.promote_types(x.dtype, torch.float32)
+        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+
+
 class CanvasConv3x3(nn.Module):
     """3x3 SAME conv on the policy's canvas trunk (the JAX class's plain
     path). `fold_bias_into_norm` skips the bias add: a batch-stat norm
@@ -182,6 +195,51 @@ class MLP(nn.Sequential):
         super().__init__(*layers)
 
 
+class LayerNorm(nn.Module):
+    """flax's nn.LayerNorm over the last axis: eps 1e-6, statistics in f32
+    with var = E[x^2] - E[x]^2 (clipped at 0), f32 output (the f32 params
+    promote it), parameters `weight` (flax `scale`) and `bias`."""
+
+    eps = 1e-6
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class DenseGeneral(nn.Module):
+    """flax's nn.DenseGeneral contracting the input's last len(in_shape)
+    axes into out_shape axes. The weight keeps flax's layout
+    (*in_shape, *out_shape) and the bias is (*out_shape,), so JAX weights
+    carry over as they are. Computes in `dtype` (None: the input's dtype,
+    promoted with the f32 params), as flax's `dtype=` does."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.fan_in = math.prod(self.in_shape)
+        self.weight = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape))
+        self.dtype = dtype
+        lecun_normal_(self.weight, self.fan_in)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        batch = x.shape[:x.dim() - len(self.in_shape)]
+        w = self.weight.to(cdt).reshape(self.fan_in, -1)
+        y = torch.addmm(self.bias.to(cdt).reshape(-1),
+                        x.to(cdt).reshape(-1, self.fan_in), w)
+        return y.reshape(batch + self.out_shape)
+
+
 def standardize(x: torch.Tensor, dim, eps: float, keepdim: bool = True):
     """(x - mean) / (std + eps) with unbiased std; sqrt(var + 1e-12) keeps
     the gradient of a constant column finite (layers.py rationale)."""
@@ -206,9 +264,10 @@ def lecun_normal_(w: torch.Tensor, fan_in: Optional[int] = None,
 def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
     """Fresh parameters for `module` drawn as the JAX package's flax modules
     draw theirs: lecun-normal conv and linear kernels (a transposed conv's
-    fan-in is in*kh*kw), zero biases, norms at ones/zeros, LPIPS lins
-    U(0, 0.1). Returns a state dict on the module's device; the module is
-    untouched."""
+    fan-in is in*kh*kw, a DenseGeneral's the product of its input axes),
+    zero biases, norms at ones/zeros, LPIPS lins U(0, 0.1), and N(0, std)
+    for the parameters a module names in its `normal_init` {name: std}.
+    Returns a state dict on the module's device; the module is untouched."""
     out = {}
     for mname, m in module.named_modules():
         own = list(m.named_parameters(recurse=False)) \
@@ -217,11 +276,16 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
             key = f"{mname}.{pname}" if mname else pname
             new = torch.empty(t.shape, dtype=t.dtype)
             conv_like = isinstance(m, (nn.Conv2d, nn.Linear, CanvasConv3x3, FusedConv3x3))
-            if pname == "weight" and isinstance(m, nn.ConvTranspose2d):
+            if pname in getattr(m, "normal_init", {}):
+                new.normal_(0.0, m.normal_init[pname], generator=generator)
+            elif pname == "weight" and isinstance(m, DenseGeneral):
+                lecun_normal_(new, m.fan_in, generator)
+            elif pname == "weight" and isinstance(m, nn.ConvTranspose2d):
                 lecun_normal_(new, t.shape[0] * t.shape[2] * t.shape[3], generator)
             elif pname == "weight" and conv_like:
                 lecun_normal_(new, None, generator)
-            elif pname == "bias" and (conv_like or isinstance(m, nn.ConvTranspose2d)):
+            elif pname == "bias" and (conv_like or isinstance(
+                    m, (nn.ConvTranspose2d, DenseGeneral))):
                 new.zero_()
             elif pname.startswith("lin") and t.dim() == 1:
                 new.uniform_(0.0, 0.1, generator=generator)

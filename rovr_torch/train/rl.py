@@ -1,14 +1,17 @@
-"""The ROVR episode, PyTorch port of rovr_tpu/train/rl.py: the module zoo,
-its state, the episode init and the rollout.
+"""The ROVR episode and RL train step, PyTorch port of
+rovr_tpu/train/rl.py: the module zoo, its state, the episode init, the
+rollout, PPO with Adam, and `train_step`.
 
-The port covers what serving and the reward path run: the canvas context
-policy with sequential targets (`use_policy1=False`), no RAFT spatio signal
-and no sequential baseline; `rollout` raises on those options. PPO, Adam and
-the train step come in a later slice.
+The port covers both context policies (the canvas PolicyNet2 and the
+attention policy of config 5) with sequential targets
+(`use_policy1=False`), no RAFT spatio signal and no sequential baseline;
+`rollout` raises on those options. The `Episode/exposure` diagnostic (the
+`masks` argument of the JAX train step) is not ported.
 
 State and modules are split as in the JAX package: `ROVRModules` holds the
-nn.Modules, `ROVRState` their parameters as state dicts (port layout, f32).
-`bind` points the modules at a state without copying it.
+nn.Modules, `ROVRState` their parameters as state dicts (port layout, f32)
+and the actor's and critic's Adam states. `bind` points the modules at a
+state without copying it.
 
 The JAX rollout is one `lax.scan`; here it is a Python loop over
 `time_steps`. It syncs nothing with the host: target and context indices
@@ -16,11 +19,16 @@ stay device tensors. The working video `recon` is a copy of the input in
 the compute dtype, written in place one target frame per step (the JAX
 carry is immutable and rewritten with a scatter); keeping it in the compute
 dtype, as the JAX package does, keeps the uint8 output's LSBs in step.
+
+PPO's epochs are a Python loop of `torch.optim.Adam` steps (optax.adam's
+defaults). `ppo_update` returns a new state: the actor's and critic's
+parameters are copied once per call and updated in place, and the input
+state is left as it was.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,34 +37,45 @@ from rovr_torch.config import Config
 from rovr_torch.device import resolve
 from rovr_torch.models.layers import flax_init_state
 from rovr_torch.models.local_net import LocalNetUNet
+from rovr_torch.models.policy_attention import AttentionContextPolicy
 from rovr_torch.models.policy_net_2 import PolicyNet2
 from rovr_torch.models.vgg_lpips import LPIPS
 from rovr_torch.models.video_processor import VideoProcessor, resize_bilinear
-from rovr_torch.ops.rewards import rewards_to_go
+from rovr_torch.ops.ppo import critic_loss, ppo_clip_actor_loss
+from rovr_torch.ops.rewards import normalized_advantage, rewards_to_go
+
+Policy = Union[PolicyNet2, AttentionContextPolicy]
 
 
 class ROVRModules(NamedTuple):
     vp: VideoProcessor
-    actor2: PolicyNet2
-    critic2: PolicyNet2
+    actor2: Policy    # PolicyNet2 ("canvas") or AttentionContextPolicy ("attention")
+    critic2: Policy
     local_net: LocalNetUNet
     lpips: LPIPS
 
 
 class ROVRState(NamedTuple):
-    """Parameters of each module as a state dict (name -> tensor)."""
+    """Parameters of each module as a state dict (name -> tensor), the
+    count of PPO updates, and the actor's and critic's Adam states
+    ({"step": int, "exp_avg": {name: tensor}, "exp_avg_sq": {name: tensor}},
+    optax.adam's (count, mu, nu))."""
 
     vp_params: Dict[str, torch.Tensor]
     actor2_params: Dict[str, torch.Tensor]
     critic2_params: Dict[str, torch.Tensor]
     local_net_params: Dict[str, torch.Tensor]
     lpips_params: Dict[str, torch.Tensor]
+    step: int
+    actor2_opt: dict
+    critic2_opt: dict
 
 
 class Trajectory(NamedTuple):
     """Stacked rollout tensors, time-major (T, B, ...)."""
 
-    obs: tuple                  # (canvas (T,B,C,C,1), target_feat (T,B,D))
+    obs: tuple                  # canvas: (canvas (T,B,C,C,1), target_feat (T,B,D));
+                                # attention: (frame feats (T,B,S,D),)
     target_idx: torch.Tensor    # (T, B) int64
     actions: torch.Tensor       # (T, B, 2) int64
     logprobs: torch.Tensor      # (T, B)
@@ -89,17 +108,24 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
     dev = resolve(device)
     dt = dtype if dtype is not None else torch.bfloat16
     m = cfg.model
-    if cfg.rl.context_policy != "canvas":
-        raise NotImplementedError(
-            f"context_policy={cfg.rl.context_policy!r}: only the canvas "
-            "policy is ported"
+    if cfg.rl.context_policy == "attention":
+        pol, kw = AttentionContextPolicy, dict(
+            num_frames=m.pn2_num_frames, feature_dim=m.feature_dim,
+            hidden_dim=m.attn_hidden_dim, num_heads=m.attn_heads,
+            depth=m.attn_depth, patch_tokens=m.attn_patch_tokens,
+            temperature=m.pn2_temperature, dtype=dt, attn_impl=m.attn_impl,
+            pp_microbatches=m.attn_pp_microbatches,
+            moe_experts=m.attn_moe_experts,
         )
-    pn2 = dict(
-        num_frames=m.pn2_num_frames, fc_dims=m.pn2_fc_dims,
-        temperature=m.pn2_temperature, dtype=dt,
-        per_sample_stats=m.per_sample_stats, canvas_size=m.canvas_size,
-        feature_dim=m.feature_dim,
-    )
+    elif cfg.rl.context_policy == "canvas":
+        pol, kw = PolicyNet2, dict(
+            num_frames=m.pn2_num_frames, fc_dims=m.pn2_fc_dims,
+            temperature=m.pn2_temperature, dtype=dt,
+            per_sample_stats=m.per_sample_stats, canvas_size=m.canvas_size,
+            feature_dim=m.feature_dim,
+        )
+    else:
+        raise ValueError(f"unknown context_policy {cfg.rl.context_policy!r}")
     lp = dict(stages=m.lpips_stages) if m.lpips_stages else {}
     mods = ROVRModules(
         vp=VideoProcessor(
@@ -108,8 +134,8 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
             dtype=dt, backbone_name=m.backbone,
             spatial_pool=m.backbone_spatial_pool,
         ),
-        actor2=PolicyNet2(**pn2),
-        critic2=PolicyNet2(**pn2, is_critic=True),
+        actor2=pol(**kw),
+        critic2=pol(**kw, is_critic=True),
         local_net=LocalNetUNet(channels=m.local_net_channels, dtype=dt),
         lpips=LPIPS(dtype=dt, **lp),
     )
@@ -118,19 +144,36 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
     return mods
 
 
+def adam_init(params: Dict[str, torch.Tensor]) -> dict:
+    """optax.adam's initial state: count 0, zero moments."""
+    return {"step": 0,
+            "exp_avg": {k: torch.zeros_like(v) for k, v in params.items()},
+            "exp_avg_sq": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+
 def init_state(cfg: Config, mods: ROVRModules, seed: int) -> ROVRState:
     """Fresh parameters from `seed`, drawn as the JAX package's flax
     initializers draw them (lecun-normal kernels, zero biases, LPIPS lins
-    U(0, 0.1)), on the modules' device. torch's draws differ from JAX's."""
+    U(0, 0.1), N(0, 0.02) attention embeddings), on the modules' device,
+    and fresh Adam states. torch's draws differ from JAX's."""
     gen = torch.Generator().manual_seed(seed)
-    return ROVRState(**{
+    params = {
         _MODULE_STATE[name]: flax_init_state(mod, gen)
         for name, mod in zip(ROVRModules._fields, mods)
-    })
+    }
+    return ROVRState(**params, step=0,
+                     actor2_opt=adam_init(params["actor2_params"]),
+                     critic2_opt=adam_init(params["critic2_params"]))
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def state_to(state: ROVRState, device) -> ROVRState:
-    return ROVRState(*[{k: v.to(device) for k, v in d.items()} for d in state])
+    return ROVRState(*[_tree_to(x, device) for x in state])
 
 
 def bind(mods: ROVRModules, state: ROVRState) -> None:
@@ -147,7 +190,6 @@ def bind(mods: ROVRModules, state: ROVRState) -> None:
 def _check_supported(cfg: Config) -> None:
     rl = cfg.rl
     unported = {
-        "context_policy='attention'": rl.context_policy != "canvas",
         "use_policy1": rl.use_policy1,
         "use_spatio_reward / log_spatio": rl.use_spatio_reward or rl.log_spatio,
         "sequential_baseline": rl.sequential_baseline,
@@ -199,25 +241,47 @@ def episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
     return EpisodeInit(curr_loss, org_taps, canvas, feats)
 
 
+def _policy_act(mods: ROVRModules, cfg: Config, obs, tgt, gumbel=None,
+                generator=None):
+    """actor2.act over the configured context policy (greedy per cfg)."""
+    return mods.actor2.act(*obs, tgt, greedy=cfg.rl.greedy, gumbel=gumbel,
+                           generator=generator)
+
+
+def _policy_logprob(mods: ROVRModules, obs, tgt, acs, gumbel=None, generator=None):
+    """actor2.logprob of stored actions with fresh Gumbel noise."""
+    return mods.actor2.logprob(*obs, tgt, acs, gumbel=gumbel, generator=generator)
+
+
+def _policy_value(mods: ROVRModules, cfg: Config, obs, tgt):
+    """critic2.value; the attention critic also reads the target index."""
+    if cfg.rl.context_policy == "attention":
+        return mods.critic2.value(*obs, tgt)
+    return mods.critic2.value(*obs)
+
+
 @torch.no_grad()
 def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             video: torch.Tensor, org_video: torch.Tensor,
             generator: Optional[torch.Generator] = None,
-            rewards: bool = True) -> RolloutOut:
+            rewards: bool = True,
+            gumbel: Optional[torch.Tensor] = None) -> RolloutOut:
     """The episode (ROVR.forward), gradient-free.
 
-    video/org_video: (B, S, H, W, 3) in [0,1]. `generator` draws the Gumbel
-    noise when cfg.rl.greedy is off (default: seeded from cfg.run.seed).
-    `rewards=False` skips the LPIPS reward path in the init and in every
-    step, which is what XLA's dead-code elimination does to the JAX serving
-    graph; the trajectory then has no rewards-to-go and `metrics` is empty.
+    video/org_video: (B, S, H, W, 3) in [0,1]. When cfg.rl.greedy is off the
+    Gumbel noise is `gumbel` (T, B, S), or is drawn from `generator`
+    (default: seeded from cfg.run.seed). `rewards=False` skips the LPIPS
+    reward path in the init and in every step, which is what XLA's
+    dead-code elimination does to the JAX serving graph; the trajectory
+    then has no rewards-to-go and `metrics` is empty.
     """
     _check_supported(cfg)
     rl = cfg.rl
     b, s = video.shape[:2]
     dev = video.device
+    attention = rl.context_policy == "attention"
     cache_from = cfg.model.lpips_cache_from_stage
-    if not rl.greedy and generator is None:
+    if not rl.greedy and gumbel is None and generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
 
     init = episode_init(state, mods, cfg, video, org_video, rewards)  # binds
@@ -227,15 +291,13 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     video_cd = video.to(mods.local_net.dtype)
     recon = video_cd.clone()
     ar = torch.arange(b, device=dev)
-    ys = {k: [] for k in ("canvas", "feat", "tgt", "acs", "logp", "marginal",
-                          "lpips", "mse")}
+    ys = {k: [] for k in ("obs", "tgt", "acs", "logp", "marginal", "lpips", "mse")}
     for t in range(rl.time_steps):
         tgt = torch.full((b,), t % s, dtype=torch.long, device=dev)
-        tgt_feat = fts[ar, tgt]
-        ys["canvas"].append(cvs)
-        ys["feat"].append(tgt_feat)
-        acs, logp = mods.actor2.act(cvs, tgt_feat, tgt, greedy=rl.greedy,
-                                    generator=generator)
+        obs = (fts,) if attention else (cvs, fts[ar, tgt])
+        ys["obs"].append(obs)
+        noise = None if (rl.greedy or gumbel is None) else gumbel[t]
+        acs, logp = _policy_act(mods, cfg, obs, tgt, noise, generator)
 
         frame_src = recon if rl.recon_context else video_cd
         y_hat = mods.local_net(frame_src[ar, tgt], _gather_frames(frame_src, acs))
@@ -253,7 +315,11 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             ys["mse"].append(((y_hat - org_tgt) ** 2).mean((1, 2, 3)))
 
         _write_frame(recon, tgt, y_hat.to(recon.dtype))
-        cvs, _ = mods.vp.insert_encoded_frame_batch(tgt, y_hat, cvs)
+        cvs, new_feat = mods.vp.insert_encoded_frame_batch(tgt, y_hat, cvs)
+        if attention:
+            # keep the per-frame feature table in step with the written frame
+            # (JAX rl.py:628-633); out of place: ys holds the old table
+            fts = fts.index_put((ar, tgt), new_feat.to(fts.dtype))
         ys["tgt"].append(tgt)
         ys["acs"].append(acs)
         ys["logp"].append(logp)
@@ -273,9 +339,139 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             "Episode/coverage": (distinct / rl.time_steps).mean(),
         }
     traj = Trajectory(
-        obs=(torch.stack(ys["canvas"]), torch.stack(ys["feat"])),
+        obs=tuple(torch.stack(x) for x in zip(*ys["obs"])),
         target_idx=target_idx, actions=torch.stack(ys["acs"]),
         logprobs=torch.stack(ys["logp"]), rtgs=rtgs,
     )
     return RolloutOut(traj, recon.to(video.dtype), metrics)
 
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """(T, B, ...) -> (B*T, ...), batch-major (JAX rl.py:733-740)."""
+    return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:]))
+
+
+def actor_loss(mods: ROVRModules, cfg: Config, obs, tgt, acs, old_logp, adv,
+               gumbel=None, generator=None) -> torch.Tensor:
+    """PPO-clip loss of the bound actor on flattened trajectory tensors."""
+    logp = _policy_logprob(mods, obs, tgt, acs, gumbel, generator)
+    return ppo_clip_actor_loss(logp, old_logp, adv, cfg.rl.clip)
+
+
+def value_loss(mods: ROVRModules, cfg: Config, obs, tgt, rtgs) -> torch.Tensor:
+    """MSE of the bound critic's values against the rewards-to-go."""
+    return critic_loss(_policy_value(mods, cfg, obs, tgt), rtgs)
+
+
+def _trainable(mod: torch.nn.Module, params: Dict[str, torch.Tensor]):
+    """Bind a copy of `params` to `mod` with gradients on; returns the
+    module's (name, parameter) list, in a fixed order."""
+    dev = next(mod.parameters()).device
+    mod.load_state_dict({k: v.detach().to(dev, copy=True) for k, v in params.items()},
+                        strict=True, assign=True)
+    mod.requires_grad_(True)
+    return list(mod.named_parameters())
+
+
+def _adam(named, opt_state: dict, lr: float) -> torch.optim.Adam:
+    """torch.optim.Adam (optax.adam's defaults) resumed from `opt_state`."""
+    opt = torch.optim.Adam([p for _, p in named], lr=lr)
+    if opt_state["step"] > 0:
+        for name, p in named:
+            opt.state[p] = {
+                "step": torch.tensor(float(opt_state["step"])),
+                "exp_avg": opt_state["exp_avg"][name].to(p.device, copy=True),
+                "exp_avg_sq": opt_state["exp_avg_sq"][name].to(p.device, copy=True),
+            }
+    return opt
+
+
+def _adam_step(opt: torch.optim.Adam, named) -> None:
+    """One Adam step. A parameter the loss does not reach (a trunk conv's
+    bias that the norm cancels) gets a zero gradient, as under jax.grad, so
+    every moment and count advances as optax's do."""
+    for _, p in named:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.step()
+
+
+def _adam_state(opt: torch.optim.Adam, named) -> dict:
+    """The optimizer's state in ROVRState's form."""
+    return {
+        "step": int(opt.state[named[0][1]]["step"]),
+        "exp_avg": {n: opt.state[p]["exp_avg"] for n, p in named},
+        "exp_avg_sq": {n: opt.state[p]["exp_avg_sq"] for n, p in named},
+    }
+
+
+def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
+               traj: Trajectory, generator: Optional[torch.Generator] = None,
+               gumbel: Optional[torch.Tensor] = None
+               ) -> Tuple[ROVRState, Dict[str, torch.Tensor]]:
+    """PPO-clip on actor2/critic2 (ROVR.ppo): the advantage from rtg - V(obs)
+    normalized once, then n_updates_per_ppo epochs, each an actor Adam step
+    and then a critic Adam step. The actor's fresh Gumbel noise is
+    `gumbel` (n_updates, B*T, S) in `_flat`'s row order, or is drawn from
+    `generator` (default: seeded from cfg.run.seed + 1)."""
+    rl = cfg.rl
+    obs = tuple(_flat(x) for x in traj.obs)
+    tgt, acs = _flat(traj.target_idx), _flat(traj.actions)
+    old_logp, rtgs = _flat(traj.logprobs), _flat(traj.rtgs)
+    if gumbel is None and generator is None:
+        generator = torch.Generator(device=tgt.device).manual_seed(cfg.run.seed + 1)
+
+    a_named = _trainable(mods.actor2, state.actor2_params)
+    c_named = _trainable(mods.critic2, state.critic2_params)
+    with torch.no_grad():
+        adv = normalized_advantage(rtgs, _policy_value(mods, cfg, obs, tgt))
+    a_opt = _adam(a_named, state.actor2_opt, rl.actor_lr)
+    c_opt = _adam(c_named, state.critic2_opt, rl.critic_lr)
+    for e in range(rl.n_updates_per_ppo):
+        noise = None if gumbel is None else gumbel[e]
+        a_opt.zero_grad(set_to_none=True)
+        a_loss = actor_loss(mods, cfg, obs, tgt, acs, old_logp, adv, noise, generator)
+        a_loss.backward()
+        _adam_step(a_opt, a_named)
+        c_opt.zero_grad(set_to_none=True)
+        c_loss = value_loss(mods, cfg, obs, tgt, rtgs)
+        c_loss.backward()
+        _adam_step(c_opt, c_named)
+    for mod in (mods.actor2, mods.critic2):
+        mod.requires_grad_(False)
+    state = state._replace(
+        step=state.step + 1,
+        actor2_params={n: p.detach() for n, p in a_named},
+        critic2_params={n: p.detach() for n, p in c_named},
+        actor2_opt=_adam_state(a_opt, a_named),
+        critic2_opt=_adam_state(c_opt, c_named),
+    )
+    metrics = {"PPO/actor_loss": a_loss.detach(), "PPO/critic_loss": c_loss.detach()}
+    return state, metrics
+
+
+def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
+               video: torch.Tensor, org_video: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One RL step: rollout with rewards, then PPO (ROVR.train). Returns
+    (state, metrics, reconstructed).
+
+    `video`/`org_video` (B, S, H, W, 3) are uint8, divided by 255 on the
+    device, or float in [0, 1]. The Gumbel noise of the rollout and of PPO
+    comes from `generator` (default: seeded from cfg.run.seed), or is given
+    as `gumbel` = (rollout noise (T, B, S), PPO noise (n_updates, B*T, S))."""
+    dev = next(mods.local_net.parameters()).device
+    video, org_video = (torch.as_tensor(x).to(dev) for x in (video, org_video))
+    if video.dtype == torch.uint8:
+        video = video.float() * (1.0 / 255.0)
+    if org_video.dtype == torch.uint8:
+        org_video = org_video.float() * (1.0 / 255.0)
+    if gumbel is None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
+    g_roll, g_ppo = gumbel if gumbel is not None else (None, None)
+    out = rollout(state, mods, cfg, video, org_video, generator, True, g_roll)
+    state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo)
+    metrics = dict(out.metrics)
+    metrics.update(ppo_metrics)
+    return state, metrics, out.reconstructed

@@ -12,7 +12,11 @@ by module. The port's modules keep the flax names, so the map is by rule:
   * norm `scale` -> `weight`, frozen-norm `mean`/`var` -> `running_mean`/
     `running_var`;
   * flax list names `convs_0`/`norms_0` -> `convs.0`/`norms.0`, and the
-    MLP's `Dense_j` -> `j`.
+    `final_fc` MLP's `Dense_j` -> `j` (a Dense_j elsewhere, as in the
+    attention blocks' FeedForwardBlock, keeps its name);
+  * a DenseGeneral kernel (3-D: q/k/v (in,H,D), out (H,D,out), the attention
+    policy's tokenize (feat,P,H)) keeps flax's layout: the port's
+    DenseGeneral stores it so.
 
 No row permutation is needed for PolicyNet2's first final_fc layer: the
 port flattens its conv trunk in the same NHWC order as the JAX package.
@@ -21,12 +25,12 @@ port flattens its conv trunk in the same NHWC order as the JAX package.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rovr_torch.train.rl import ROVRState
+from rovr_torch.train.rl import ROVRState, adam_init
 
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
@@ -40,12 +44,12 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (k,), np.asarray(v)
 
 
-def _module_name(name: str) -> str:
+def _module_name(name: str, parent: str) -> str:
     m = re.fullmatch(r"(convs|norms)_(\d+)", name)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
     m = re.fullmatch(r"Dense_(\d+)", name)
-    return m.group(1) if m else name
+    return m.group(1) if m and parent == "final_fc" else name
 
 
 def module_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -60,20 +64,41 @@ def module_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 a = a.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and a.ndim == 2:
             a = a.T
-        key = ".".join([_module_name(m) for m in mods] + [_LEAF.get(leaf, leaf)])
+        names = [_module_name(m, p) for m, p in zip(mods, [""] + mods)]
+        key = ".".join(names + [_LEAF.get(leaf, leaf)])
         out[key] = torch.from_numpy(np.array(a, dtype=np.float32))  # a copy
     return out
 
 
+def _adam_from_jax(opt, device) -> Optional[dict]:
+    """optax.adam's state ((ScaleByAdamState(count, mu, nu), EmptyState()))
+    -> the port's {"step", "exp_avg", "exp_avg_sq"}; None when absent."""
+    for part in (opt if isinstance(opt, (tuple, list)) else (opt,)):
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return {"step": int(np.asarray(part.count)), **{
+                name: {k: v.to(device) for k, v in module_params_from_jax(tree).items()}
+                for name, tree in (("exp_avg", part.mu), ("exp_avg_sq", part.nu))}}
+    return None
+
+
 def params_from_jax(jax_state: Any, device=None) -> ROVRState:
     """JAX ROVRState (or a mapping with its `*_params` fields) -> the port's
-    ROVRState, tensors on `device` (default: the CPU)."""
-    def get(field):
+    ROVRState on `device` (default: the CPU): every module's parameters,
+    the PPO step count and, where the JAX state has them, the actor's and
+    critic's Adam states (else fresh ones)."""
+    def get(field, default=None):
         if isinstance(jax_state, Mapping):
-            return jax_state[field]
-        return getattr(jax_state, field)
+            return jax_state.get(field, default)
+        return getattr(jax_state, field, default)
 
-    return ROVRState(**{
-        f: {k: v.to(device or "cpu") for k, v in module_params_from_jax(get(f)).items()}
-        for f in ROVRState._fields
-    })
+    dev = device or "cpu"
+    params = {
+        f: {k: v.to(dev) for k, v in module_params_from_jax(get(f)).items()}
+        for f in ROVRState._fields if f.endswith("_params")
+    }
+    opts = {}
+    for f in ("actor2", "critic2"):
+        opt = _adam_from_jax(get(f"{f}_opt"), dev)
+        opts[f"{f}_opt"] = opt if opt is not None else adam_init(params[f"{f}_params"])
+    return ROVRState(**params, **opts, step=int(np.asarray(get("step", 0))))
+
