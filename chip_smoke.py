@@ -14,9 +14,13 @@ after. Phases:
 
   1. device, card name and power limit; TF32 off for the comparisons;
   2. K1 (fused conv3x3) vs its plain version at the three serving shapes,
-     a ragged shape and relu=False; the backward once; CUDA-event times of
-     the kernel, the plain version and cuDNN (the library yardstick, used
-     nowhere in the port) beside the computed bound;
+     two ragged shapes (odd H/W, Cin = 72 past a 64-channel slice, one at
+     W = 32 under the 4 x 32 spatial tile) and relu=False; the backward
+     once; CUDA-event times of the kernel, the plain version and cuDNN (the
+     library yardstick, used nowhere in the port), and the profiler's
+     device time of the kernel and of cuDNN, beside the computed bound,
+     with each shape's share of the bound and its ratio to cuDNN under
+     both measures;
   3. K2/K3/K4 (flash attention forward, dq, dk/dv) vs their plain twins at
      the rollout shape (8,4,256,64), the PPO shape (512,4,256,64) and
      tests/test_attention.py's shapes (padded D, unaligned L, cross 128x200,
@@ -68,7 +72,8 @@ SERVING_SHAPES = {         # name: (B, H, W, Cin, Cout), batch 8 at 256^2
     "conv4": (8, 32, 32, 256, 512),
     "conv5": (8, 64, 64, 512, 256),
 }
-RAGGED = (3, 37, 29, 72, 40)   # odd H/W, Cin and Cout off the 32/128 tiles
+RAGGED = (3, 37, 29, 72, 40)   # odd H/W, Cin and Cout off the 64/128 tiles
+RAGGED32 = (2, 30, 32, 72, 200)  # W = 32 (4 x 32 tile), H off TH, Cout off 256
 K1_TOL = 2e-2                  # max|kernel - plain| <= K1_TOL * max|plain|
 UNET_TOL = dict(max_abs=1e-2, mean_abs=5e-4)  # K1 vs plain differ by bf16 LSBs
 SERVE_BATCHES = 3
@@ -113,10 +118,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, kernel: str, iters: int = 20) -> float:
+def profiled_ms(torch, fn, kernel: str | None = None, iters: int = 20) -> float:
     """Device time of one call of `fn`, summed over the launches of the
-    kernels whose name holds `kernel` (torch.profiler): unlike events around
-    a loop, it does not count the host's pace between short launches."""
+    kernels whose name holds `kernel` (every kernel if None; torch.profiler):
+    unlike events around a loop, it does not count the host's pace between
+    short launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -126,7 +132,7 @@ def profiled_ms(torch, fn, kernel: str, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if kernel in e.key)
+             if kernel is None or kernel in e.key)
     return us / 1e3 / iters
 
 
@@ -170,6 +176,7 @@ def phase_k1(torch, conv, F):
 
     cases = [(n, s, True) for n, s in SERVING_SHAPES.items()]
     cases += [("ragged", RAGGED, True), ("ragged", RAGGED, False),
+              ("ragged32", RAGGED32, True), ("ragged32", RAGGED32, False),
               ("conv4", SERVING_SHAPES["conv4"], False)]
     for name, shape, relu in cases:
         x, k, bias = inputs(*shape)
@@ -190,15 +197,31 @@ def phase_k1(torch, conv, F):
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         w_cl = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b16 = bias.bfloat16()
-        ms = cuda_ms(lambda: conv.fused_conv3x3(x, k, bias, True))
+        def kernel():
+            return conv.fused_conv3x3(x, k, bias, True)
+
+        def cudnn():
+            return F.relu(F.conv2d(x_cl, w_cl, b16, padding=1))
+
+        # events around 20 calls (the host's pace can set them for a short
+        # kernel), and the profiler's device time of the same calls
+        ms, lib_ms = cuda_ms(kernel), cuda_ms(cudnn)
+        dev_ms = profiled_ms(torch, kernel, "conv3x3_kernel")
+        lib_dev_ms = profiled_ms(torch, cudnn)
         plain_ms = cuda_ms(lambda: conv.fused_conv3x3_plain(x, k, bias, True), iters=5)
-        lib_ms = cuda_ms(lambda: F.relu(F.conv2d(x_cl, w_cl, b16, padding=1)))
         bound_ms, bound_by, flops = conv_bound(b, h, w, cin, cout)
         rows.append(dict(call=name, shape=list(shape), ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         tflops=flops / ms / 1e9, max_abs_err=err))
-        log(f"K1 {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+                         vs_library=ms / lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms, device_tflops=flops / dev_ms / 1e9,
+                         device_bound_share=bound_ms / dev_ms,
+                         device_vs_library=dev_ms / lib_dev_ms, max_abs_err=err))
+        log(f"K1 {name}: events: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.3f} of the bound), cuDNN {lib_ms:.4f} ms (kernel/cuDNN "
+            f"{ms / lib_ms:.3f}); device time: kernel {dev_ms:.4f} ms ({bound_ms / dev_ms:.3f} "
+            f"of the bound), cuDNN {lib_dev_ms:.4f} ms (kernel/cuDNN "
+            f"{dev_ms / lib_dev_ms:.3f}); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})")
 
     # backward: the autograd.Function's gradient is the plain version's
@@ -723,14 +746,15 @@ def main() -> int:
     build_s = time.time() - t0
     log(f"nvcc build (both sources at once): {build_s:.1f} s")
     ptxas = {}
+    label = {"fused_conv3x3": "K1", "flash_attention": "K2-K4"}
     for name, text in logs.items():
         kernel = None
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1] if "'" in line else line.strip()
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 ptxas.setdefault(name, []).append(f"{kernel}: {line.strip()}")
-                log(f"  {name}: {kernel}: {line.strip()}")
+                log(f"  ptxas {label[name]} {kernel}: {line.strip()}")
 
     rows, k1_err = phase_k1(torch, conv, F)
     attn, attn_err = phase_attention(torch, attention, F)
@@ -761,8 +785,8 @@ def main() -> int:
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
     # batch 8, 256^2), K2-K4's per call at the PPO shape (512,4,256,64)
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
-                                                   "bound_ms")}
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
     ppo = attn["ppo"]
     kernels = [dict(
         name="fused_conv3x3", route="cuda",
@@ -773,8 +797,15 @@ def main() -> int:
         bound_by="operations" if all(r["bound_by"] == "operations" for r in rows)
         else "bytes",
         library_ms=total["library_ms"],
-        per="one UNet call: conv3 + conv4 + conv5 at batch 8, 256^2 frames; "
+        device_ms=total["device_ms"], library_device_ms=total["library_device_ms"],
+        per="one UNet call: conv3 + conv4 + conv5 at batch 8, 256^2 frames; ms and "
+            "library_ms: CUDA events over 20 calls, as for K2-K4; device_ms and "
+            "library_device_ms: the profiler's device time of the same calls; "
             "library: cuDNN conv2d + bias + ReLU",
+        design="implicit GEMM: 4-D TMA boxes of the unpadded NHWC input (128-pixel "
+               "spatial tile, zero-filled halo) and 3-D boxes of the HWIO weights, "
+               "128B swizzle, 4-stage mbarrier ring, wgmma m64n256k16 bf16 -> f32 in "
+               "two consumer warpgroups, bias + ReLU on the accumulators",
     )]
     for kid, kname, fn, line, lib, lib_what in (
             ("K2", "flash_attention_fwd", "fwd", 94, ppo["sdpa_ms"]["fwd"],

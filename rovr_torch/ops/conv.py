@@ -12,13 +12,18 @@ operations per byte, far above the card's ~295 bf16 operations per byte of
 device memory: the tensor cores bound it, not memory.
 
 What the design does about that (csrc/fused_conv3x3.cu): an implicit GEMM
-(M = B*H*W, N = Cout, K = 9*Cin) on bf16 tensor-core fragments with f32
-accumulation, reading the unpadded input once per tap through a cp.async ring
-with the halo masked to zero in the copy itself: no padded copy, and none of
-the nine materialized shift views the TPU kernel needed. Bias and ReLU run in
-the f32 epilogue before the single bf16 store. It is the simple version
-(WMMA/mma.sync, no wgmma or TMA), so it reaches a fraction of the peak; its
-times stand beside the bound in PERF.md.
+(M = output pixels, N = Cout, K = 9*Cin) fed to Hopper's tensor cores the
+way they run fastest. `wgmma` multiplies bf16 into f32 accumulators held in
+registers (two consumer warpgroups, a 128 x 256 output tile). A
+block's 128 output pixels are a TH x TW rectangle of one image, so each
+(tap, 64-channel slice) of the A operand is a single 4-D TMA box of the
+unpadded NHWC input, and TMA fills the halo, a ragged edge and channels past
+Cin with zeros: no padded copy, none of the nine materialized shift views the
+TPU kernel needed, no address arithmetic in the loop. The HWIO weights are
+read as they are (wgmma's transpose-B). One producer thread keeps a 4-stage
+ring of such tiles in flight with mbarriers. Bias and ReLU run on the f32
+accumulators before the single bf16 store. Its times stand beside the bound
+and cuDNN's in PERF.md.
 
 `fused_conv3x3` launches the kernel for a CUDA tensor and uses the plain
 version `fused_conv3x3_plain` only for a CPU tensor. There is no fallback: a
@@ -79,7 +84,7 @@ def check_kernel_args(x, kernel, bias) -> None:
         )
     if bias.dtype != torch.float32:
         raise TypeError(f"fused_conv3x3 kernel takes an f32 bias, got {bias.dtype}")
-    if cin % 8 or cout % 8:
+    if cin % 8 or cout % 8:  # TMA's global strides are multiples of 16 bytes
         raise ValueError(
             f"fused_conv3x3 kernel needs Cin and Cout divisible by 8, got "
             f"{cin}, {cout}"

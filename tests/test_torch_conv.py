@@ -32,7 +32,12 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("h,w,cin,cout", [(16, 16, 8, 16), (32, 16, 8, 8)])
+@pytest.mark.parametrize("h,w,cin,cout", [
+    (16, 16, 8, 16), (32, 16, 8, 8),
+    # the plain version against Pallas at the kernel's ragged shapes: Cin = 72
+    # (a 64-channel slice and 8 more), W = 29, and both with an odd H
+    (8, 16, 72, 16), (12, 29, 8, 24), (9, 29, 72, 40),
+])
 def test_plain_matches_pallas_interpret_and_reference(h, w, cin, cout):
     x, k, b = _inputs(0, 2, h, w, cin, cout)
     ours = tconv.fused_conv3x3(*_t(x, k, b), True).numpy()
@@ -133,10 +138,14 @@ def test_module_impls():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """On the card: the CUDA kernel against the plain version on the same
-    bf16 inputs, including a ragged shape (skipped without a GPU)."""
+    bf16 inputs at conv3's and conv4's widths, ragged shapes (Cin = 72, odd
+    H and W, W = 32 under the 4 x 32 tile) and the backward check's shape
+    (skipped without a GPU). chip_smoke.py's phase 2 holds the kernel at the
+    same ragged shapes ("ragged", "ragged32") on a machine without JAX."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for shape in [(2, 64, 64, 128, 256), (1, 37, 29, 72, 40)]:
+    for shape in [(2, 64, 64, 128, 256), (2, 32, 32, 256, 512), (1, 37, 29, 72, 40),
+                  (2, 30, 32, 72, 200), (2, 9, 7, 16, 24)]:
         b, h, w, cin, cout = shape
         x, k, bias = _inputs(6, b, h, w, cin, cout)
         xc = torch.from_numpy(x).cuda().bfloat16()
