@@ -22,11 +22,16 @@ after. Phases:
      with each shape's share of the bound and its ratio to cuDNN under
      both measures;
   3. K2/K3/K4 (flash attention forward, dq, dk/dv) vs their plain twins at
-     the rollout shape (8,4,256,64), the PPO shape (512,4,256,64) and
+     the rollout shape (8,4,256,64), the PPO shape (512,4,256,64),
      tests/test_attention.py's shapes (padded D, unaligned L, cross 128x200,
-     D 128): out, lse, dq, dk, dv; CUDA-event times beside the bound, the
-     twins and F.scaled_dot_product_attention (forward, and forward+backward
-     for K3+K4; a yardstick the port never calls);
+     D 128) and 256 heads of L 130: out, lse, dq, dk, dv, and the mma.sync
+     forward (by its test hook) on the same inputs; the K2 kernel the
+     profiler saw at each shape against `flash_fwd_route`; at the rollout
+     and PPO shapes CUDA-event times and the profiler's device time beside
+     the bound, the twins, the mma.sync forward and F.scaled_dot_product_attention
+     (forward, and forward+backward for K3+K4; a yardstick the port never
+     calls), the layout copies the policy makes around K2, and at the
+     rollout shape the host's microseconds per forward call;
   4. one full-width UNet call, kernel vs plain;
   5. serving at Config() widths: ResNet-50, UNet 64-512, PolicyNet2 on a
      160^2 canvas, 256^2 frames, S = T = 20, batch 8, random init from a
@@ -84,8 +89,10 @@ ATTN_SHAPES = {                # name: (B, H, Lq, Lk, D)
     "L130_D48": (2, 1, 130, 130, 48),
     "cross128x200": (1, 2, 128, 200, 64),
     "D128": (1, 1, 128, 128, 128),
-    "L70_D20": (1, 2, 70, 70, 20),   # D % 8 != 0: the element-wise copy path
+    "wide_L130": (64, 4, 130, 130, 64),  # K2's 128-row items, a warpgroup past Lq
+    "L70_D20": (1, 2, 70, 70, 20),   # D % 8 != 0: the mma.sync forward, element-wise copies
 }
+K2_KERNELS = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}  # by route
 ATTN_TOL = 2e-2   # bf16 outputs (2^-8) and P, dS rounded to bf16
 LSE_TOL = 1e-3    # absolute, f32 LSE
 POLICY_TOL = 5e-2  # kernel vs plain attention path through the whole policy
@@ -238,17 +245,60 @@ def phase_k1(torch, conv, F):
     return rows, max_err
 
 
+def kernels_run(torch, fn):
+    """Names of the device kernels one call of `fn` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+
+
+def host_us(torch, fn, n: int = 1000) -> float:
+    """Host time of one call of `fn` (microseconds): the clock over n calls
+    with no synchronize between them, then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def check_k2_route(torch, attention, name, q, k, v):
+    """K2 by its wrapper: the kernel the profiler saw must be the one
+    `flash_fwd_route` names, and the C entry point must agree with it."""
+    d = q.shape[-1]
+    route = attention.flash_fwd_route(d)
+    if attention._lib().rovr_flash_fwd_route(d) != (route == "tma"):
+        raise AssertionError(f"K2 route at {name}: the C entry point disagrees with {route}")
+    out = {}
+    ran = kernels_run(torch, lambda: out.update(o=attention.flash_attention_fwd(q, k, v)))
+    want = K2_KERNELS[route]
+    other = K2_KERNELS["mma" if route == "tma" else "tma"]
+    if not any(want in n for n in ran) or any(other in n for n in ran):
+        raise AssertionError(f"K2 at {name}: route {route}, the profiler saw {ran}")
+    log(f"K2 {name}: route {route}, ran {[n for n in ran if 'flash' in n]}")
+    return route, out["o"]
+
+
 def phase_attention(torch, attention, F):
-    """K2/K3/K4 against their plain twins at every listed shape; times at the
-    rollout and PPO shapes beside the bound, the twins and SDPA."""
+    """K2/K3/K4 against their plain twins at every listed shape, with the K2
+    kernel each shape took; at the rollout and PPO shapes times beside the
+    bound, the twins, the mma.sync forward, SDPA and the layout copies around K2."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, max_err = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for name, (b, h, lq, lk, d) in ATTN_SHAPES.items():
         def rnd(length):
             return torch.randn(b, h, length, d, device="cuda", generator=gen).bfloat16()
         q, k, v, do = rnd(lq), rnd(lk), rnd(lk), rnd(lq)
-        o, lse = attention.flash_attention_fwd(q, k, v)
+        route, (o, lse) = check_k2_route(torch, attention, name, q, k, v)
         o_p, lse_p = attention.flash_attention_fwd_plain(q, k, v)
+        o_m, lse_m = attention.flash_attention_fwd_mma(q, k, v)
         delta = (do.float() * o.float()).sum(-1)
         dq = attention.flash_attention_dq(q, k, v, do, lse, delta)
         dq_p = attention.flash_attention_dq_plain(q, k, v, do, lse, delta)
@@ -258,69 +308,108 @@ def phase_attention(torch, attention, F):
         lse_err = (lse - lse_p).abs().max().item()
         errs = {}
         for out, got, ref in (("out", o, o_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
-                              ("dv", dv, dv_p)):
+                              ("dv", dv, dv_p), ("out_mma", o_m, o_p)):
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             errs[out] = err
             if not err <= ATTN_TOL * scale:
                 raise AssertionError(f"{out} at {name}: max|kernel-plain| {err} > "
                                      f"{ATTN_TOL} * {scale}")
-        if not lse_err <= LSE_TOL:
+        if not lse_err <= LSE_TOL or not (lse_m - lse_p).abs().max().item() <= LSE_TOL:
             raise AssertionError(f"lse at {name}: {lse_err}")
         max_err["fwd"] = max(max_err["fwd"], errs["out"])
         max_err["dq"] = max(max_err["dq"], errs["dq"])
         max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
         log(f"K2-K4 {name} {(b, h, lq, lk, d)}: max|kernel-plain| out {errs['out']:.4g} "
-            f"lse {lse_err:.3g} dq {errs['dq']:.4g} dk {errs['dk']:.4g} "
-            f"dv {errs['dv']:.4g}: ok")
-        row = dict(shape=[b, h, lq, lk, d], lse_err=lse_err, **errs)
+            f"(mma.sync forward {errs['out_mma']:.4g}) lse {lse_err:.3g} dq {errs['dq']:.4g} "
+            f"dk {errs['dk']:.4g} dv {errs['dv']:.4g}: ok")
+        row = dict(shape=[b, h, lq, lk, d], route=route, lse_err=lse_err, **errs)
         if name in ("rollout", "ppo"):
-            iters = 20 if name == "rollout" else 10
-            flops, nbytes = attention_cost(b, h, lq, lk, d)
-            row["ms"] = {
-                "fwd": cuda_ms(lambda: attention.flash_attention_fwd(q, k, v), iters),
-                "dq": cuda_ms(lambda: attention.flash_attention_dq(q, k, v, do, lse, delta),
-                              iters),
-                "dkv": cuda_ms(lambda: attention.flash_attention_dkv(q, k, v, do, lse,
-                                                                     delta), iters),
-            }
-            row["plain_ms"] = {
-                "fwd": cuda_ms(lambda: attention.flash_attention_fwd_plain(q, k, v), 5),
-                "dq": cuda_ms(lambda: attention.flash_attention_dq_plain(
-                    q, k, v, do, lse, delta), 5),
-                "dkv": cuda_ms(lambda: attention.flash_attention_dkv_plain(
-                    q, k, v, do, lse, delta), 5),
-            }
-            if name == "rollout":  # short launches: events see the host's pace
-                row["profiled_ms"] = {
-                    "fwd": profiled_ms(torch, lambda: attention.flash_attention_fwd(
-                        q, k, v), "flash_fwd_kernel"),
-                    "dq": profiled_ms(torch, lambda: attention.flash_attention_dq(
-                        q, k, v, do, lse, delta), "flash_dq_kernel"),
-                    "dkv": profiled_ms(torch, lambda: attention.flash_attention_dkv(
-                        q, k, v, do, lse, delta), "flash_dkv_kernel"),
-                }
-                log(f"K2-K4 rollout device time by the profiler (ms): {row['profiled_ms']}")
-            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
-            sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do), iters)
-            row["sdpa_ms"] = {"fwd": sdpa_fwd, "fwd_bwd": sdpa_fb, "bwd": sdpa_fb - sdpa_fwd}
-            row["bound_ms"], row["bound_by"], row["tflops"] = {}, {}, {}
-            for kname in ("fwd", "dq", "dkv"):
-                t_ops = flops[kname] / PEAK_BF16_FLOPS
-                t_bytes = nbytes[kname] / PEAK_BYTES
-                row["bound_ms"][kname] = max(t_ops, t_bytes) * 1e3
-                row["bound_by"][kname] = "operations" if t_ops >= t_bytes else "bytes"
-                row["tflops"][kname] = flops[kname] / row["ms"][kname] / 1e9
-            row["flops"], row["bytes"] = flops, nbytes
-            log(f"K2-K4 {name} times (ms): " + ", ".join(
-                f"{kn} kernel {row['ms'][kn]:.4f} / bound {row['bound_ms'][kn]:.4f} "
-                f"({row['bound_by'][kn]}) / plain {row['plain_ms'][kn]:.4f}"
-                for kn in ("fwd", "dq", "dkv"))
-                + f"; SDPA fwd {sdpa_fwd:.4f}, fwd+bwd {sdpa_fb:.4f}")
+            row.update(attention_times(torch, attention, F, name, q, k, v, do, lse, delta))
         rows[name] = row
     return rows, max_err
+
+
+def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
+    """K2-K4 at one shape: CUDA events around `iters` calls (`ms`, and SDPA's
+    `sdpa_ms`) and the profiler's device time of the same calls (`device_ms`,
+    `sdpa_device_ms`); the mma.sync forward by its test hook (`fwd_mma`) under
+    both; at the rollout shape the host's microseconds per call of either
+    forward; and the layout copies the policy makes around K2 (q, k, v from
+    (B,L,H,D) to (B,H,L,D), O back), under both."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    iters = 20 if name == "rollout" else 10
+    calls = {
+        "fwd": lambda: attention.flash_attention_fwd(q, k, v),
+        "fwd_mma": lambda: attention.flash_attention_fwd_mma(q, k, v),
+        "dq": lambda: attention.flash_attention_dq(q, k, v, do, lse, delta),
+        "dkv": lambda: attention.flash_attention_dkv(q, k, v, do, lse, delta),
+    }
+    keys = {"fwd": K2_KERNELS["tma"], "fwd_mma": K2_KERNELS["mma"],
+            "dq": "flash_dq_kernel", "dkv": "flash_dkv_kernel"}
+    res = {"ms": {kn: cuda_ms(fn, iters) for kn, fn in calls.items()},
+           "device_ms": {kn: profiled_ms(torch, fn, keys[kn], iters)
+                         for kn, fn in calls.items()}}
+    res["plain_ms"] = {
+        "fwd": cuda_ms(lambda: attention.flash_attention_fwd_plain(q, k, v), 5),
+        "dq": cuda_ms(lambda: attention.flash_attention_dq_plain(q, k, v, do, lse, delta), 5),
+        "dkv": cuda_ms(lambda: attention.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+                       5),
+    }
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    sdpa_fb = lambda: torch.autograd.grad(  # noqa: E731
+        F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do)
+    ev = {"fwd": cuda_ms(sdpa, iters), "fwd_bwd": cuda_ms(sdpa_fb, iters)}
+    dev = {"fwd": profiled_ms(torch, sdpa, None, iters),
+           "fwd_bwd": profiled_ms(torch, sdpa_fb, None, iters)}
+    res["sdpa_ms"] = dict(ev, bwd=ev["fwd_bwd"] - ev["fwd"])
+    res["sdpa_device_ms"] = dict(dev, bwd=dev["fwd_bwd"] - dev["fwd"])
+    if name == "rollout":  # at the PPO shape the host waits on a full launch queue
+        res["host_us"] = {"fwd": host_us(torch, calls["fwd"]),
+                          "fwd_mma": host_us(torch, calls["fwd_mma"])}
+
+    x = torch.randn(b, lq, h, d, device="cuda").bfloat16()   # a projection's output
+    o = calls["fwd"]()[0]
+    copy_in = lambda: [x.transpose(1, 2).contiguous() for _ in range(3)]  # noqa: E731
+    copy_out = lambda: o.transpose(1, 2).reshape(b * lq, h * d)  # noqa: E731
+    res["layout_ms"] = {"qkv_in": cuda_ms(copy_in, iters), "o_out": cuda_ms(copy_out, iters)}
+    res["layout_device_ms"] = {"qkv_in": profiled_ms(torch, copy_in, None, iters),
+                               "o_out": profiled_ms(torch, copy_out, None, iters)}
+    res["layout_bytes"] = {"qkv_in": 3 * 2 * 2.0 * b * lq * h * d,
+                           "o_out": 2 * 2.0 * b * lq * h * d}
+
+    flops, nbytes = attention_cost(b, h, lq, lk, d)
+    res["bound_ms"], res["bound_by"], res["tflops"] = {}, {}, {}
+    for kname in ("fwd", "dq", "dkv"):
+        t_ops = flops[kname] / PEAK_BF16_FLOPS
+        t_bytes = nbytes[kname] / PEAK_BYTES
+        res["bound_ms"][kname] = max(t_ops, t_bytes) * 1e3
+        res["bound_by"][kname] = "operations" if t_ops >= t_bytes else "bytes"
+        res["tflops"][kname] = flops[kname] / res["ms"][kname] / 1e9
+    res["flops"], res["bytes"] = flops, nbytes
+    bound = res["bound_ms"]["fwd"]
+    ms, dv_ms = res["ms"], res["device_ms"]
+    log(f"K2-K4 {name} times (ms): " + ", ".join(
+        f"{kn} kernel {ms[kn]:.4f} [device {dv_ms[kn]:.4f}] / bound {res['bound_ms'][kn]:.4f} "
+        f"({res['bound_by'][kn]}) / plain {res['plain_ms'][kn]:.4f}"
+        for kn in ("fwd", "dq", "dkv")))
+    log(f"K2 {name}: events {ms['fwd']:.4f} ms ({bound / ms['fwd']:.3f} of the bound, "
+        f"{ms['fwd'] / ev['fwd']:.3f}x SDPA {ev['fwd']:.4f}), device {dv_ms['fwd']:.4f} ms "
+        f"({bound / dv_ms['fwd']:.3f} of the bound, {dv_ms['fwd'] / dev['fwd']:.3f}x SDPA "
+        f"{dev['fwd']:.4f}); mma.sync forward events {ms['fwd_mma']:.4f}, device "
+        f"{dv_ms['fwd_mma']:.4f}" + ("; host us per call {fwd:.2f} (mma.sync forward "
+                                      "{fwd_mma:.2f})".format(**res["host_us"])
+                                      if "host_us" in res else ""))
+    log(f"K3+K4 {name}: events {ms['dq'] + ms['dkv']:.4f} ms against SDPA backward "
+        f"{res['sdpa_ms']['bwd']:.4f}; device {dv_ms['dq'] + dv_ms['dkv']:.4f} against "
+        f"{res['sdpa_device_ms']['bwd']:.4f}")
+    log(f"layout copies around K2 at {name} (ms): q, k, v to (B,H,L,D) events "
+        f"{res['layout_ms']['qkv_in']:.4f} device {res['layout_device_ms']['qkv_in']:.4f}; "
+        f"O back events {res['layout_ms']['o_out']:.4f} device "
+        f"{res['layout_device_ms']['o_out']:.4f}")
+    return res
 
 
 def phase_unet(torch, conv, LocalNetUNet, flax_init_state):
@@ -697,14 +786,18 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
     if busy_ms == 0:
         log("train profile: the profiler saw no device time (not measured)")
         return dict(wall_ms=wall_ms, device_ms=None)
-    ours = {name: sum(r["ms"] for r in rows if key in r["kernel"])
-            for name, key in (("K1", "conv3x3_kernel"), ("K2", "flash_fwd_kernel"),
-                              ("K3", "flash_dq_kernel"), ("K4", "flash_dkv_kernel"))}
+    k2 = {route: sum(r["count"] for r in rows if key in r["kernel"])
+          for route, key in K2_KERNELS.items()}
+    if k2["mma"] or not k2["tma"]:  # D = 64: every K2 launch is the TMA kernel
+        raise AssertionError(f"K2 launches of the config-5 train step by kernel: {k2}")
+    ours = {name: sum(r["ms"] for r in rows if any(key in r["kernel"] for key in keys))
+            for name, keys in (("K1", ("conv3x3_kernel",)), ("K2", tuple(K2_KERNELS.values())),
+                               ("K3", ("flash_dq_kernel",)), ("K4", ("flash_dkv_kernel",)))}
     res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-               kernel_ms=ours, top=rows[:25])
+               kernel_ms=ours, k2_launches_by_kernel=k2, top=rows[:25])
     log(f"profile of one config-5 train step: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}); port kernels (ms) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in ours.items()))
+        + ", ".join(f"{k} {v:.2f}" for k, v in ours.items()) + f"; K2 launches {k2}")
     for r in rows[:25]:
         log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
     return res
@@ -807,21 +900,34 @@ def main() -> int:
                "128B swizzle, 4-stage mbarrier ring, wgmma m64n256k16 bf16 -> f32 in "
                "two consumer warpgroups, bias + ReLU on the accumulators",
     )]
-    for kid, kname, fn, line, lib, lib_what in (
-            ("K2", "flash_attention_fwd", "fwd", 94, ppo["sdpa_ms"]["fwd"],
-             "F.scaled_dot_product_attention forward"),
-            ("K3", "flash_attention_dq", "dq", 184, ppo["sdpa_ms"]["bwd"],
+    for kid, kname, fn, line, lib_what in (
+            ("K2", "flash_attention_fwd", "fwd", 94, "F.scaled_dot_product_attention forward"),
+            ("K3", "flash_attention_dq", "dq", 184,
              "SDPA backward (fwd+bwd minus fwd), dq, dk and dv together"),
-            ("K4", "flash_attention_dkv", "dkv", 217, ppo["sdpa_ms"]["bwd"],
+            ("K4", "flash_attention_dkv", "dkv", 217,
              "SDPA backward (fwd+bwd minus fwd), dq, dk and dv together")):
+        lib = "fwd" if fn == "fwd" else "bwd"
         kernels.append(dict(
             name=kname, route="cuda", source="rovr_torch/csrc/flash_attention.cu",
             replaces=f"rovr_tpu/ops/pallas/attention.py:{line}",
             launches=train5["launches"][kid], max_abs_err=attn_err[fn],
             ms=ppo["ms"][fn], plain_ms=ppo["plain_ms"][fn], bound_ms=ppo["bound_ms"][fn],
-            bound_by=ppo["bound_by"][fn], library_ms=lib,
-            per="one call at the PPO shape (512,4,256,64) bf16; library: " + lib_what,
+            bound_by=ppo["bound_by"][fn], library_ms=ppo["sdpa_ms"][lib],
+            device_ms=ppo["device_ms"][fn], library_device_ms=ppo["sdpa_device_ms"][lib],
+            per="one call at the PPO shape (512,4,256,64) bf16; ms and library_ms: CUDA "
+                "events over 10 calls; device_ms and library_device_ms: the profiler's "
+                "device time of the same calls; library: " + lib_what,
         ))
+    kernels[1].update(
+        mma_ms=ppo["ms"]["fwd_mma"], mma_device_ms=ppo["device_ms"]["fwd_mma"],
+        design="persistent blocks over (head, 128-query-row) items (64 rows when few "
+               "heads); one producer thread keeps TMA loads of Q (two buffers) and of the "
+               "head's K/V (3-D maps, 128B swizzle, zero-filled past L and D) in a 4-stage "
+               "mbarrier ring; two consumer warpgroups run S = Q K^T and O += P V as wgmma "
+               "(P bf16 from registers, V MN-major), online softmax in f32 registers; O "
+               "stored by TMA from a swizzled staging tile")
+    kernels[1]["per"] += ("; mma_ms and mma_device_ms: the mma.sync forward on the "
+                          "same inputs, by its test hook")
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, attention=attn, unet=unet, serving=serving,
                   profile=profile, rollout_rewards=rewards, policy5=policy,

@@ -8,14 +8,22 @@ keys/values, self or cross (Lq != Lk), any L and D up to 256, the JAX
 layout at the public function.
 
 What bounds them on an H100: at the PPO shape of config 5 (512 sequences x
-4 heads x 256 tokens x D 64) each kernel does 34-69 GFLOP on 270-406 MB,
-about 128 operations per byte, under the card's ~295: device memory bounds
-them. The design (csrc/flash_attention.cu, FA2-style) reads each tile of
-q, k, v and dO from device memory once per block and keeps the (L x L)
-scores, probabilities and their gradients in registers; the TPU kernels'
-D-to-128 padding and 128-lane LSE broadcast are not copied (the ragged D
-and L are masked in the copy to shared memory). Simple version: mma.sync,
-no wgmma or TMA.
+4 heads x 256 tokens x D 64) K2 does 34.4 GFLOP on 270.5 MB, 127 operations
+per byte, and K3/K4 52-69 GFLOP on 340-407 MB, all under the card's ~295:
+device memory bounds them. None of them pads D to 128 lanes or broadcasts
+LSE over 128 lanes as the TPU kernels did.
+
+K2 (csrc/flash_attention.cu, `flash_fwd_tma_kernel`) takes every D % 8 == 0
+up to 128: persistent blocks walk (head, query tile) items; one producer
+thread keeps TMA loads of Q and of the head's K/V tiles in flight (ragged L
+and D zero-filled by TMA), so the next item's loads overlap this item's
+products; one or two consumer warpgroups run S = Q K^T and O += P V as
+`wgmma` (P from registers) with the online softmax in f32 registers; O
+leaves by a TMA store. The `mma.sync` forward stays for D % 8 != 0
+(TMA needs 16-byte row strides) and D > 128 (the TMA kernel's buffers do not
+fit in shared memory); `flash_fwd_route` states the rule, which the C entry
+point applies to each launch. K3 and K4 keep the earlier design: `mma.sync`
+fed by a 2-stage `cp.async` ring, S, P and dS in registers.
 
 Each kernel has a plain PyTorch twin here, mirroring its arithmetic in f32
 with the kernel's bf16 rounding points (P and dS rounded to the input
@@ -23,8 +31,10 @@ dtype before their second product): `flash_attention_fwd_plain`,
 `flash_attention_dq_plain`, `flash_attention_dkv_plain`. The wrappers
 `flash_attention_fwd`, `flash_attention_dq` and `flash_attention_dkv`
 launch the kernel for CUDA tensors (bf16 q/k/v/dO, f32 lse/delta; anything
-else raises) and add one to their own `launches` count; a CPU tensor runs
-the twin. There is no fallback.
+else raises, as does any build, encode or launch error) and add one to their
+own `launches` count; a CPU tensor runs the twin. There is no fallback.
+`flash_attention_fwd_mma` launches the mma.sync forward whatever D: a test hook
+for holding the two forwards against each other, which the port never calls.
 
 `flash_attention(q, k, v)` is the differentiable op: an autograd.Function
 whose forward is K2 and whose backward computes delta = rowsum(dO * O) in
@@ -42,6 +52,14 @@ from rovr_torch.ops import cuda_build
 
 _SOURCE = "flash_attention"
 MAX_HEAD_DIM = 256
+TMA_MAX_HEAD_DIM = 128
+
+
+def flash_fwd_route(d: int) -> str:
+    """Which kernel K2 launches for head dim d: "tma" (TMA + wgmma) for
+    d % 8 == 0 up to TMA_MAX_HEAD_DIM, else "mma" (the mma.sync
+    kernel). The C entry point applies the same rule (rovr_flash_fwd_route)."""
+    return "tma" if d % 8 == 0 and d <= TMA_MAX_HEAD_DIM else "mma"
 
 
 def _scores(q, k):
@@ -121,10 +139,13 @@ def _lib() -> ctypes.CDLL:
     if lib.rovr_flash_fwd_bf16.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rovr_flash_fwd_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.rovr_flash_fwd_mma_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.rovr_flash_dq_bf16.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.rovr_flash_dkv_bf16.argtypes = [p] * 8 + [i] * 4 + [p]
-        for fn in (lib.rovr_flash_fwd_bf16, lib.rovr_flash_dq_bf16,
-                   lib.rovr_flash_dkv_bf16):
+        lib.rovr_flash_fwd_route.argtypes = [i]
+        for fn in (lib.rovr_flash_fwd_bf16, lib.rovr_flash_fwd_mma_bf16,
+                   lib.rovr_flash_dq_bf16, lib.rovr_flash_dkv_bf16,
+                   lib.rovr_flash_fwd_route):
             fn.restype = ctypes.c_int
         lib.rovr_flash_error_string.argtypes = [ctypes.c_int]
         lib.rovr_flash_error_string.restype = ctypes.c_char_p
@@ -150,19 +171,33 @@ def _on_cuda(name: str, t) -> bool:
     return True
 
 
-def flash_attention_fwd(q, k, v):
-    """K2: (out (B,H,Lq,D) in q's dtype, lse (B,H,Lq) f32). A CUDA q
-    launches the kernel and adds one to `flash_attention_fwd.launches`;
-    a CPU q runs the plain twin."""
-    if not _on_cuda("flash_attention_fwd", q):
-        return flash_attention_fwd_plain(q, k, v)
+def _fwd(name: str, q, k, v):
     check_kernel_args(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _call("rovr_flash_fwd_bf16", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          o.data_ptr(), lse.data_ptr())
-    flash_attention_fwd.launches += 1
+    _call(name, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          lse.data_ptr())
     return o, lse
+
+
+def flash_attention_fwd(q, k, v):
+    """K2: (out (B,H,Lq,D) in q's dtype, lse (B,H,Lq) f32). A CUDA q
+    launches the kernel `flash_fwd_route` names and adds one to
+    `flash_attention_fwd.launches`; a CPU q runs the plain twin."""
+    if not _on_cuda("flash_attention_fwd", q):
+        return flash_attention_fwd_plain(q, k, v)
+    out = _fwd("rovr_flash_fwd_bf16", q, k, v)
+    flash_attention_fwd.launches += 1
+    return out
+
+
+def flash_attention_fwd_mma(q, k, v):
+    """Test hook: K2 by the mma.sync kernel whatever D (CUDA tensors
+    only), to hold the two forwards against each other on the same inputs.
+    The port never calls it, and it counts no K2 launch."""
+    if not _on_cuda("flash_attention_fwd_mma", q):
+        raise ValueError("flash_attention_fwd_mma launches a CUDA kernel; q is on the CPU")
+    return _fwd("rovr_flash_fwd_mma_bf16", q, k, v)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta):

@@ -5,7 +5,7 @@ it is held against `rovr_tpu.ops.pallas.conv.fused_conv3x3` in Pallas
 interpret mode and against the XLA `_reference`, at test_pallas_conv.py's
 shapes, at f32 (atol/rtol 1e-4: f32 sums in another order). The CUDA kernel
 itself is compared with the plain version on the card by the `cuda`-marked
-test here and by chip_smoke.py.
+test in tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -133,26 +133,3 @@ def test_module_impls():
             mods["kernel"](xt)
     with pytest.raises(ValueError):
         tl.FusedConv3x3(8, 16, impl="pallas")
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """On the card: the CUDA kernel against the plain version on the same
-    bf16 inputs at conv3's and conv4's widths, ragged shapes (Cin = 72, odd
-    H and W, W = 32 under the 4 x 32 tile) and the backward check's shape
-    (skipped without a GPU). chip_smoke.py's phase 2 holds the kernel at the
-    same ragged shapes ("ragged", "ragged32") on a machine without JAX."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    for shape in [(2, 64, 64, 128, 256), (2, 32, 32, 256, 512), (1, 37, 29, 72, 40),
-                  (2, 30, 32, 72, 200), (2, 9, 7, 16, 24)]:
-        b, h, w, cin, cout = shape
-        x, k, bias = _inputs(6, b, h, w, cin, cout)
-        xc = torch.from_numpy(x).cuda().bfloat16()
-        kc = torch.from_numpy(k).cuda().bfloat16()
-        bc = torch.from_numpy(bias).cuda()
-        for relu in (True, False):
-            y = tconv.fused_conv3x3(xc, kc, bc, relu).float()
-            ref = tconv.fused_conv3x3_plain(xc.float(), kc.float(), bc, relu)
-            torch.cuda.synchronize()
-            assert (y - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
