@@ -25,13 +25,15 @@ after. Phases:
      the rollout shape (8,4,256,64), the PPO shape (512,4,256,64),
      tests/test_attention.py's shapes (padded D, unaligned L, cross 128x200,
      D 128) and 256 heads of L 130: out, lse, dq, dk, dv, and the mma.sync
-     forward (by its test hook) on the same inputs; the K2 kernel the
-     profiler saw at each shape against `flash_fwd_route`; at the rollout
-     and PPO shapes CUDA-event times and the profiler's device time beside
-     the bound, the twins, the mma.sync forward and F.scaled_dot_product_attention
-     (forward, and forward+backward for K3+K4; a yardstick the port never
-     calls), the layout copies the policy makes around K2, and at the
-     rollout shape the host's microseconds per forward call;
+     kernels (by their test hooks) on the same inputs; the K2, K3 and K4
+     kernels the profiler saw at each shape against `flash_fwd_route` and
+     `flash_bwd_route`; at the rollout and PPO shapes CUDA-event times and
+     the profiler's device time beside the bound, the twins, the mma.sync
+     kernels and F.scaled_dot_product_attention (forward, and forward+backward
+     for K3+K4; a yardstick the port never calls), the layout copies the
+     policy makes around K2 (q, k, v in, O out) and around K3 and K4 (dO
+     in, dq, dk, dv out), and at the rollout shape the host's microseconds
+     per forward call;
   4. one full-width UNet call, kernel vs plain;
   5. serving at Config() widths: ResNet-50, UNet 64-512, PolicyNet2 on a
      160^2 canvas, 256^2 frames, S = T = 20, batch 8, random init from a
@@ -51,8 +53,8 @@ after. Phases:
      exactly 150 K2, 20 K3, 20 K4 and 192 K1, give finite metrics and move
      the actor's and critic's parameters; sec/step, frames/s, peak memory;
  11. one config-5 train step taken in parts (episode init, rollout, PPO),
-     host-timed, then one under torch.profiler: device time by kernel and
-     the idle share.
+     host-timed, then one under torch.profiler: device time by kernel, the
+     idle share, and K2-K4's launches by kernel (every one the TMA route).
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
@@ -93,6 +95,8 @@ ATTN_SHAPES = {                # name: (B, H, Lq, Lk, D)
     "L70_D20": (1, 2, 70, 70, 20),   # D % 8 != 0: the mma.sync forward, element-wise copies
 }
 K2_KERNELS = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}  # by route
+BWD_KERNELS = {"dq": {"tma": "flash_dq_tma_kernel", "mma": "flash_dq_kernel"},     # K3
+               "dkv": {"tma": "flash_dkv_tma_kernel", "mma": "flash_dkv_kernel"}}  # K4
 ATTN_TOL = 2e-2   # bf16 outputs (2^-8) and P, dS rounded to bf16
 LSE_TOL = 1e-3    # absolute, f32 LSE
 POLICY_TOL = 5e-2  # kernel vs plain attention path through the whole policy
@@ -286,10 +290,32 @@ def check_k2_route(torch, attention, name, q, k, v):
     return route, out["o"]
 
 
+def check_bwd_route(torch, attention, name, q, k, v, do, lse, delta):
+    """K3 and K4 by their wrappers: the kernel the profiler saw must be the
+    one `flash_bwd_route` names (and the other route's must not run), and
+    the C entry point must agree. Returns (route, dq, (dk, dv))."""
+    d = q.shape[-1]
+    route = attention.flash_bwd_route(d)
+    if attention._lib().rovr_flash_bwd_route(d) != (route == "tma"):
+        raise AssertionError(f"K3/K4 route at {name}: the C entry point disagrees with {route}")
+    outs = {}
+    for kname in ("dq", "dkv"):
+        fn = getattr(attention, f"flash_attention_{kname}")
+        ran = kernels_run(torch, lambda: outs.update({kname: fn(q, k, v, do, lse, delta)}))
+        want = BWD_KERNELS[kname][route]
+        other = BWD_KERNELS[kname]["mma" if route == "tma" else "tma"]
+        if not any(want in n for n in ran) or any(other in n for n in ran):
+            raise AssertionError(f"{kname} at {name}: route {route}, the profiler saw {ran}")
+        log(f"{'K3' if kname == 'dq' else 'K4'} {name}: route {route}, ran "
+            f"{[n for n in ran if 'flash' in n]}")
+    return route, outs["dq"], outs["dkv"]
+
+
 def phase_attention(torch, attention, F):
-    """K2/K3/K4 against their plain twins at every listed shape, with the K2
-    kernel each shape took; at the rollout and PPO shapes times beside the
-    bound, the twins, the mma.sync forward, SDPA and the layout copies around K2."""
+    """K2/K3/K4 and their mma.sync kernels against the plain twins at every
+    listed shape, with the kernels each shape took; at the rollout and PPO
+    shapes times beside the bound, the twins, the mma.sync kernels, SDPA and
+    the layout copies around K2-K4."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, max_err = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for name, (b, h, lq, lk, d) in ATTN_SHAPES.items():
@@ -300,15 +326,18 @@ def phase_attention(torch, attention, F):
         o_p, lse_p = attention.flash_attention_fwd_plain(q, k, v)
         o_m, lse_m = attention.flash_attention_fwd_mma(q, k, v)
         delta = (do.float() * o.float()).sum(-1)
-        dq = attention.flash_attention_dq(q, k, v, do, lse, delta)
+        bwd_route, dq, (dk, dv) = check_bwd_route(torch, attention, name, q, k, v, do,
+                                                  lse, delta)
         dq_p = attention.flash_attention_dq_plain(q, k, v, do, lse, delta)
-        dk, dv = attention.flash_attention_dkv(q, k, v, do, lse, delta)
         dk_p, dv_p = attention.flash_attention_dkv_plain(q, k, v, do, lse, delta)
+        dq_m = attention.flash_attention_dq_mma(q, k, v, do, lse, delta)
+        dk_m, dv_m = attention.flash_attention_dkv_mma(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
         lse_err = (lse - lse_p).abs().max().item()
         errs = {}
         for out, got, ref in (("out", o, o_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
-                              ("dv", dv, dv_p), ("out_mma", o_m, o_p)):
+                              ("dv", dv, dv_p), ("out_mma", o_m, o_p), ("dq_mma", dq_m, dq_p),
+                              ("dk_mma", dk_m, dk_p), ("dv_mma", dv_m, dv_p)):
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             errs[out] = err
@@ -321,9 +350,11 @@ def phase_attention(torch, attention, F):
         max_err["dq"] = max(max_err["dq"], errs["dq"])
         max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
         log(f"K2-K4 {name} {(b, h, lq, lk, d)}: max|kernel-plain| out {errs['out']:.4g} "
-            f"(mma.sync forward {errs['out_mma']:.4g}) lse {lse_err:.3g} dq {errs['dq']:.4g} "
-            f"dk {errs['dk']:.4g} dv {errs['dv']:.4g}: ok")
-        row = dict(shape=[b, h, lq, lk, d], route=route, lse_err=lse_err, **errs)
+            f"lse {lse_err:.3g} dq {errs['dq']:.4g} dk {errs['dk']:.4g} dv {errs['dv']:.4g}; "
+            f"mma.sync kernels out {errs['out_mma']:.4g} dq {errs['dq_mma']:.4g} dk "
+            f"{errs['dk_mma']:.4g} dv {errs['dv_mma']:.4g}: ok")
+        row = dict(shape=[b, h, lq, lk, d], route=route, bwd_route=bwd_route, lse_err=lse_err,
+                   **errs)
         if name in ("rollout", "ppo"):
             row.update(attention_times(torch, attention, F, name, q, k, v, do, lse, delta))
         rows[name] = row
@@ -333,10 +364,11 @@ def phase_attention(torch, attention, F):
 def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
     """K2-K4 at one shape: CUDA events around `iters` calls (`ms`, and SDPA's
     `sdpa_ms`) and the profiler's device time of the same calls (`device_ms`,
-    `sdpa_device_ms`); the mma.sync forward by its test hook (`fwd_mma`) under
-    both; at the rollout shape the host's microseconds per call of either
-    forward; and the layout copies the policy makes around K2 (q, k, v from
-    (B,L,H,D) to (B,H,L,D), O back), under both."""
+    `sdpa_device_ms`); the mma.sync kernels by their test hooks (`fwd_mma`,
+    `dq_mma`, `dkv_mma`) under both; at the rollout shape the host's
+    microseconds per call of either forward; and the layout copies the policy
+    makes around K2 (q, k, v from (B,L,H,D) to (B,H,L,D), O back) and around
+    K3 and K4 (dO in, dq, dk, dv back), under both."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     iters = 20 if name == "rollout" else 10
@@ -345,9 +377,13 @@ def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
         "fwd_mma": lambda: attention.flash_attention_fwd_mma(q, k, v),
         "dq": lambda: attention.flash_attention_dq(q, k, v, do, lse, delta),
         "dkv": lambda: attention.flash_attention_dkv(q, k, v, do, lse, delta),
+        "dq_mma": lambda: attention.flash_attention_dq_mma(q, k, v, do, lse, delta),
+        "dkv_mma": lambda: attention.flash_attention_dkv_mma(q, k, v, do, lse, delta),
     }
-    keys = {"fwd": K2_KERNELS["tma"], "fwd_mma": K2_KERNELS["mma"],
-            "dq": "flash_dq_kernel", "dkv": "flash_dkv_kernel"}
+    route = attention.flash_fwd_route(d)  # "tma" at both timed shapes (D = 64)
+    keys = {"fwd": K2_KERNELS[route], "fwd_mma": K2_KERNELS["mma"],
+            "dq": BWD_KERNELS["dq"][route], "dkv": BWD_KERNELS["dkv"][route],
+            "dq_mma": BWD_KERNELS["dq"]["mma"], "dkv_mma": BWD_KERNELS["dkv"]["mma"]}
     res = {"ms": {kn: cuda_ms(fn, iters) for kn, fn in calls.items()},
            "device_ms": {kn: profiled_ms(torch, fn, keys[kn], iters)
                          for kn, fn in calls.items()}}
@@ -372,13 +408,19 @@ def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
 
     x = torch.randn(b, lq, h, d, device="cuda").bfloat16()   # a projection's output
     o = calls["fwd"]()[0]
-    copy_in = lambda: [x.transpose(1, 2).contiguous() for _ in range(3)]  # noqa: E731
-    copy_out = lambda: o.transpose(1, 2).reshape(b * lq, h * d)  # noqa: E731
-    res["layout_ms"] = {"qkv_in": cuda_ms(copy_in, iters), "o_out": cuda_ms(copy_out, iters)}
-    res["layout_device_ms"] = {"qkv_in": profiled_ms(torch, copy_in, None, iters),
-                               "o_out": profiled_ms(torch, copy_out, None, iters)}
-    res["layout_bytes"] = {"qkv_in": 3 * 2 * 2.0 * b * lq * h * d,
-                           "o_out": 2 * 2.0 * b * lq * h * d}
+    # forward: q, k, v in, O out; backward (_FlashAttention.backward): dO in,
+    # dq, dk, dv out through the transposes' gradients
+    copies = {
+        "qkv_in": lambda: [x.transpose(1, 2).contiguous() for _ in range(3)],
+        "o_out": lambda: o.transpose(1, 2).reshape(b * lq, h * d),
+        "do_in": lambda: x.transpose(1, 2).contiguous(),
+        "dqkv_out": lambda: [o.transpose(1, 2).reshape(b * lq, h * d) for _ in range(3)],
+    }
+    res["layout_ms"] = {kn: cuda_ms(fn, iters) for kn, fn in copies.items()}
+    res["layout_device_ms"] = {kn: profiled_ms(torch, fn, None, iters)
+                               for kn, fn in copies.items()}
+    one = 2 * 2.0 * b * lq * h * d  # one bf16 tensor read and written
+    res["layout_bytes"] = {"qkv_in": 3 * one, "o_out": one, "do_in": one, "dqkv_out": 3 * one}
 
     flops, nbytes = attention_cost(b, h, lq, lk, d)
     res["bound_ms"], res["bound_by"], res["tflops"] = {}, {}, {}
@@ -402,13 +444,22 @@ def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
         f"{dv_ms['fwd_mma']:.4f}" + ("; host us per call {fwd:.2f} (mma.sync forward "
                                       "{fwd_mma:.2f})".format(**res["host_us"])
                                       if "host_us" in res else ""))
-    log(f"K3+K4 {name}: events {ms['dq'] + ms['dkv']:.4f} ms against SDPA backward "
-        f"{res['sdpa_ms']['bwd']:.4f}; device {dv_ms['dq'] + dv_ms['dkv']:.4f} against "
-        f"{res['sdpa_device_ms']['bwd']:.4f}")
-    log(f"layout copies around K2 at {name} (ms): q, k, v to (B,H,L,D) events "
-        f"{res['layout_ms']['qkv_in']:.4f} device {res['layout_device_ms']['qkv_in']:.4f}; "
-        f"O back events {res['layout_ms']['o_out']:.4f} device "
-        f"{res['layout_device_ms']['o_out']:.4f}")
+    for kn in ("dq", "dkv"):
+        kb = res["bound_ms"][kn]
+        log(f"{'K3' if kn == 'dq' else 'K4'} {name}: events {ms[kn]:.4f} ms ({kb / ms[kn]:.3f} "
+            f"of the bound), device {dv_ms[kn]:.4f} ms ({kb / dv_ms[kn]:.3f} of the bound); "
+            f"mma.sync kernel events {ms[kn + '_mma']:.4f}, device {dv_ms[kn + '_mma']:.4f}")
+    pair, pair_dev = ms["dq"] + ms["dkv"], dv_ms["dq"] + dv_ms["dkv"]
+    sb, sbd = res["sdpa_ms"]["bwd"], res["sdpa_device_ms"]["bwd"]
+    log(f"K3+K4 {name}: events {pair:.4f} ms ({pair / sb:.3f}x SDPA backward {sb:.4f}), "
+        f"device {pair_dev:.4f} ({pair_dev / sbd:.3f}x SDPA backward {sbd:.4f}); mma.sync "
+        f"pair events {ms['dq_mma'] + ms['dkv_mma']:.4f}, device "
+        f"{dv_ms['dq_mma'] + dv_ms['dkv_mma']:.4f}")
+    lm, ld = res["layout_ms"], res["layout_device_ms"]
+    log(f"layout copies around K2-K4 at {name} (ms): q, k, v to (B,H,L,D) events "
+        f"{lm['qkv_in']:.4f} device {ld['qkv_in']:.4f}; O back events {lm['o_out']:.4f} "
+        f"device {ld['o_out']:.4f}; dO in events {lm['do_in']:.4f} device {ld['do_in']:.4f}; "
+        f"dq, dk, dv back events {lm['dqkv_out']:.4f} device {ld['dqkv_out']:.4f}")
     return res
 
 
@@ -788,16 +839,24 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
         return dict(wall_ms=wall_ms, device_ms=None)
     k2 = {route: sum(r["count"] for r in rows if key in r["kernel"])
           for route, key in K2_KERNELS.items()}
-    if k2["mma"] or not k2["tma"]:  # D = 64: every K2 launch is the TMA kernel
-        raise AssertionError(f"K2 launches of the config-5 train step by kernel: {k2}")
+    by_kernel = {kid: {route: sum(r["count"] for r in rows if key in r["kernel"])
+                       for route, key in names.items()}
+                 for kid, names in (("K2", K2_KERNELS), ("K3", BWD_KERNELS["dq"]),
+                                    ("K4", BWD_KERNELS["dkv"]))}
+    want = {"K2": 150, "K3": 20, "K4": 20}  # D = 64: every launch is the TMA kernel
+    if any(by_kernel[kid] != {"tma": n, "mma": 0} for kid, n in want.items()):
+        raise AssertionError(f"K2-K4 launches of the config-5 train step by kernel: "
+                             f"{by_kernel}, expected {want} on the TMA route")
     ours = {name: sum(r["ms"] for r in rows if any(key in r["kernel"] for key in keys))
             for name, keys in (("K1", ("conv3x3_kernel",)), ("K2", tuple(K2_KERNELS.values())),
-                               ("K3", ("flash_dq_kernel",)), ("K4", ("flash_dkv_kernel",)))}
+                               ("K3", tuple(BWD_KERNELS["dq"].values())),
+                               ("K4", tuple(BWD_KERNELS["dkv"].values())))}
     res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-               kernel_ms=ours, k2_launches_by_kernel=k2, top=rows[:25])
+               kernel_ms=ours, launches_by_kernel=by_kernel, top=rows[:25])
     log(f"profile of one config-5 train step: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}); port kernels (ms) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in ours.items()) + f"; K2 launches {k2}")
+        f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}); port kernels (ms per step) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ours.items())
+        + f"; launches by kernel {by_kernel}")
     for r in rows[:25]:
         log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
     return res
@@ -848,6 +907,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 ptxas.setdefault(name, []).append(f"{kernel}: {line.strip()}")
                 log(f"  ptxas {label[name]} {kernel}: {line.strip()}")
+    lib = attention._lib()
+    for kid, which in (("K2", 0), ("K3", 1), ("K4", 2)):
+        smem = {f"<{dp}, {nwg}>": lib.rovr_flash_tma_smem(which, dp, nwg)
+                for dp in (64, 128) for nwg in (1, 2)}
+        ptxas[f"{kid}_tma_dynamic_smem"] = {k: v for k, v in smem.items() if v >= 0}
+        log(f"  {kid} TMA kernel dynamic shared memory (bytes): "
+            f"{ptxas[f'{kid}_tma_dynamic_smem']}")
 
     rows, k1_err = phase_k1(torch, conv, F)
     attn, attn_err = phase_attention(torch, attention, F)
@@ -926,8 +992,25 @@ def main() -> int:
                "mbarrier ring; two consumer warpgroups run S = Q K^T and O += P V as wgmma "
                "(P bf16 from registers, V MN-major), online softmax in f32 registers; O "
                "stored by TMA from a swizzled staging tile")
-    kernels[1]["per"] += ("; mma_ms and mma_device_ms: the mma.sync forward on the "
-                          "same inputs, by its test hook")
+    kernels[2].update(
+        mma_ms=ppo["ms"]["dq_mma"], mma_device_ms=ppo["device_ms"]["dq_mma"],
+        design="persistent blocks over (head, 128-query-row) items (64 rows when few heads); "
+               "each item's Q and dO by TMA (two buffers), the head's K/V streamed by one "
+               "producer thread through a 4-stage mbarrier ring; two consumer warpgroups run "
+               "S = Q K^T and dP = dO V^T as wgmma from shared memory, P and dS in f32 "
+               "registers, dQ += dS K as wgmma (dS bf16 from registers, K MN-major); dQ "
+               "stored by TMA from a swizzled staging tile")
+    kernels[3].update(
+        mma_ms=ppo["ms"]["dkv_mma"], mma_device_ms=ppo["device_ms"]["dkv_mma"],
+        design="persistent blocks over (head, 128-key-row) items (64 rows when few heads); "
+               "each item's K and V by TMA (two buffers), the head's Q, dO, LSE and delta "
+               "streamed by one producer thread through a 4-stage mbarrier ring; two consumer "
+               "warpgroups run S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory, "
+               "P^T and dS^T in f32 registers, dV += P^T dO and dK += dS^T Q as wgmma (bf16 "
+               "from registers, dO and Q MN-major); dK and dV stored by TMA")
+    for row in kernels[1:]:
+        row["per"] += ("; mma_ms and mma_device_ms: the mma.sync kernel of the first port on "
+                       "the same inputs, by its test hook")
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, attention=attn, unet=unet, serving=serving,
                   profile=profile, rollout_rewards=rewards, policy5=policy,

@@ -16,7 +16,7 @@
 // device memory bounds them.
 //
 // K2, `flash_fwd_tma_kernel`, for every D % 8 == 0 up to 128 (TMA needs
-// 16-byte global strides; see fwd_takes_tma):
+// 16-byte global strides; see takes_tma):
 //   - Operands arrive by TMA through 3-D tensor maps {D, L, B*H} with 128B
 //     swizzle, one 64-column chunk (128 bytes) of a row per box column. A box
 //     row past a head's L or a column past D reads zeros, so ragged L and D
@@ -35,14 +35,40 @@
 //   - Epilogue: O normalized in registers, written to a swizzled staging tile
 //     and stored by TMA (rows past Lq and columns past D are not written);
 //     LSE = m + log(l) written by each row's owner.
-// The mma.sync forward `flash_fwd_kernel` (below) stays for the shapes TMA cannot
-// take: D % 8 != 0, and D > 128, where the two Q buffers, the staging tile
-// and a K/V stage no longer fit in shared memory beside each other. The
-// entry point picks the kernel from D alone; a build, encode or launch error
-// of either is returned, never routed to the other.
+// K3, `flash_dq_tma_kernel`, and K4, `flash_dkv_tma_kernel`, take the same
+// D. Device memory bounds both as it bounds K2 (K3 52 GFLOP on 340 MB, K4 69
+// GFLOP on 407 MB at the PPO shape), so each reads every input tile of a
+// head by TMA, keeps S, P, dP and dS in registers and writes each output once
+// (no atomics, no f32 scratch):
+//   - Persistent blocks, one per SM, walk the work items. Each consumer
+//     warpgroup owns 64 rows of an item: query rows in K3, key rows in K4;
+//     two warpgroups share one stream (128-row items) when that still gives
+//     every SM an item and D <= 64, else one.
+//   - One producer thread loads each item's own two tiles (K3: Q and dO; K4:
+//     K and V) into one of two buffers, and streams the head's other two
+//     (K3: K and V; K4: Q and dO, with the 64 queries' LSE and delta from
+//     1-D maps over the flat (B*H*Lq) rows) through a 3- or 4-stage mbarrier
+//     ring, so loads run under the products.
+//   - Every product is a wgmma and none needs a transposed copy. K3:
+//     S = Q K^T and dP = dO V^T from shared memory (K and V K-major), then
+//     dQ += dS K with dS as bf16 from registers and K read MN-major. K4:
+//     S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += P^T dO
+//     and dK += dS^T Q with P^T and dS^T from registers and dO and Q read
+//     MN-major. The exponentials of P run under the dP product, dS under
+//     the dV product.
+//   - LSE and delta: each K3 row's pair is read once into registers per
+//     item; K4 reads its 16 query columns once per stage and multiplies LSE
+//     by log2(e) there, not per element.
+//   - Epilogue as K2's: dQ (or dK) times d^-1/2, and dV, through swizzled
+//     staging tiles into TMA stores that write nothing past L or D.
+// The mma.sync kernels `flash_fwd_kernel`, `flash_dq_kernel` and
+// `flash_dkv_kernel` (below) stay for the shapes TMA cannot take: D % 8 != 0,
+// and D > 128, where a TMA kernel's buffers no longer fit in shared memory.
+// The entry points pick the kernel from D alone (takes_tma); a build, encode
+// or launch error of either is returned, never routed to the other.
 //
-// K3, K4 and the mma.sync forward share one design: one block of 4 warps per
-// (b*h, 64-row tile), the streamed K/V (forward, K3) or Q/dO (K4) tiles in a
+// The mma.sync kernels share one design: one block of 4 warps per (b*h,
+// 64-row tile), the streamed K/V (forward, K3) or Q/dO (K4) tiles in a
 // 2-stage cp.async ring (a 16-byte cp.async with source size 0 zero-fills
 // rows past L and columns past D), bf16 mma.sync.m16n8k16 with f32
 // accumulators, S, P and dS kept in registers, each output written by one
@@ -367,10 +393,17 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Spin until the phase of parity `parity` has completed. There is no
-// timeout: a broken pipeline hangs.
+// timeout: a broken pipeline hangs. ROVR_MBAR_WATCHDOG, a debugging aid that
+// cuda_build.NVCC_FLAGS never sets, makes a wait trap after 2^32 clocks.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+#ifdef ROVR_MBAR_WATCHDOG
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+#else
   while (!mbar_try_wait(bar, parity)) {
   }
+#endif
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -391,6 +424,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0) : "memory");
 }
 
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
@@ -427,6 +468,12 @@ __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -451,6 +498,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Wait until at most one committed group is in flight (groups complete in
+// order: all but the last one committed are done).
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 // Keep the compiler from moving reads or writes of an accumulator register
 // across the asynchronous products.
@@ -556,9 +608,29 @@ constexpr int ROW_BYTES = 128;      // a 64-column chunk of a row: the swizzle s
 constexpr int SWIZZLE_ATOM = 1024;  // 8 rows of 128 bytes
 constexpr int STAGES = 4;           // depth of the K/V ring
 
-// TMA takes 16-byte global strides (D % 8 == 0); the buffers below fit in
-// shared memory up to D = 128.
-bool fwd_takes_tma(int D) { return D % 8 == 0 && D <= TMA_MAX_D; }
+// The route of K2, K3 and K4 alike: TMA takes 16-byte global strides
+// (D % 8 == 0), and the TMA kernels' buffers fit in shared memory up to
+// D = 128.
+bool takes_tma(int D) { return D % 8 == 0 && D <= TMA_MAX_D; }
+
+// A warpgroup's 64 x DP f32 accumulator (rows g and g + 8 of each warp's 16
+// times mul0 and mul1) as bf16 into a staging tile in TMA's 128B-swizzled
+// layout: 64-column chunks of 64 rows x 128 bytes, 16-byte unit u of row r
+// at u ^ (r % 8), which no two lanes of a store share a bank in.
+template <int DP>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const float (&acc)[DP / 2],
+                                           float mul0, float mul1, int warp, int g, int t) {
+#pragma unroll
+  for (int x = 0; x < DP / 8; ++x)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;  // r % 8 == g
+      const float mul = h ? mul1 : mul0;
+      const uint32_t at = (x / 8) * QROWS * ROW_BYTES + r * ROW_BYTES + (((x % 8) ^ g) << 4);
+      st_shared_u32(dst + at + 4 * t,
+                    pack_bf16(acc[4 * x + 2 * h] * mul, acc[4 * x + 2 * h + 1] * mul));
+    }
+}
 
 // Shared memory of the TMA kernel with heads padded to DP columns and NWG
 // consumer warpgroups: two Q buffers, the K/V ring, the O staging tile and
@@ -744,26 +816,16 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (tid == 0) mbar_arrive(kv_empty + 8 * s);  // the stage may be refilled
     }
 
-    // Epilogue: O / l into the staging tile in TMA's 128B-swizzled layout
-    // (16-byte unit u of row r at u ^ (r % 8); bank-conflict free), then one
-    // TMA store per 64-column chunk, which writes nothing past Lq or D.
-    float inv[2];
+    // Epilogue: O / l into the swizzled staging tile, then one TMA store per
+    // 64-column chunk, which writes nothing past Lq or D.
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      inv[h] = 1.0f / l[h];
     }
     if (tid == 0) bulk_wait_read();  // the last item's store has left the tile
     warpgroup_sync(1 + wg);
-#pragma unroll
-    for (int x = 0; x < DP / 8; ++x)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + g + 8 * h;  // r % 8 == g
-        st_shared_u32(so_wg + (x / 8) * C::Q_CHUNK + r * ROW_BYTES + (((x % 8) ^ g) << 4) + 4 * t,
-                      pack_bf16(acc[4 * x + 2 * h] * inv[h], acc[4 * x + 2 * h + 1] * inv[h]));
-      }
+    stage_rows<DP>(so_wg, acc, 1.0f / l[0], 1.0f / l[1], warp, g, t);
     fence_proxy_async();
     warpgroup_sync(1 + wg);
     if (tid == 0) {
@@ -996,6 +1058,397 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DP>(dv + row0 * D, dva, 1.0f, 1.0f, r0, Lk - k0, D, g, t);
 }
 
+// ------------------------------------- K3 dq and K4 dk, dv: TMA + wgmma
+
+constexpr int BWD_ROWS = 64;                     // rows of every backward tile
+constexpr int BWD_CHUNK = BWD_ROWS * ROW_BYTES;  // 8 KB: 64 rows x 64 columns
+// A TMA box must start 16-byte aligned in global memory, and a stage's 64
+// LSE (or delta) values start at any float of the flat (B*H*Lq) row: the
+// box starts at the 4-float boundary below them and takes 4 more.
+constexpr int STAT_BOX = BWD_ROWS + 4;
+constexpr int STAT_SLOT = 512;                   // bytes of a box in shared memory
+
+// Shared memory of the backward TMA kernels with heads padded to DP columns,
+// NWG consumer warpgroups and OUTS outputs (K3 1, K4 2). Each warpgroup owns
+// two 64-row tiles of the item (K3: Q and dO; K4: K and V) in one of two
+// item buffers; a ring of STAGES stages streams two tiles of the head (K3: K
+// and V; K4: Q and dO, and then the 64 queries' LSE and delta); OUTS staging
+// tiles per warpgroup carry the outputs to their TMA stores. Every tile is
+// 1024-byte aligned for the 128B swizzle.
+template <int DP, int NWG, int OUTS>
+struct BwdTma {
+  static constexpr int CHUNKS = DP / 64;
+  static constexpr int THREADS = 128 * (NWG + 1);  // + the producer warpgroup
+  static constexpr int TILE = CHUNKS * BWD_CHUNK;
+  static constexpr int ITEM_BYTES = NWG * 2 * TILE;  // one item buffer
+  static constexpr int STAGES = DP == 128 && OUTS == 2 ? 3 : 4;
+  static constexpr int STAGE_BYTES = 2 * TILE;
+  static constexpr int OUT_BYTES = NWG * OUTS * TILE;
+  static constexpr int STATS = OUTS == 2 ? 2 * STAT_SLOT : 0;  // LSE, delta of a stage
+  static constexpr int BARS = 4 + 3 * STAGES;
+  // offsets from the 1024-aligned base
+  static constexpr int RING = 2 * ITEM_BYTES;
+  static constexpr int OUT = RING + STAGES * STAGE_BYTES;
+  static constexpr int STAT = OUT + OUT_BYTES;
+  static constexpr int BAR = STAT + STAGES * STATS;
+  static constexpr int SMEM = BAR + 8 * BARS + SWIZZLE_ATOM;
+  static_assert(SMEM <= 232448, "more shared memory than a block may use");
+};
+
+// mbarriers of a backward TMA kernel: item_full[2], item_empty[2], then
+// a_full, b_full and stage_empty of each ring stage.
+template <class C>
+struct BwdBars {
+  uint32_t item_full, item_empty, a_full, b_full, stage_empty;
+  __device__ explicit BwdBars(uint32_t base)
+      : item_full(base + C::BAR), item_empty(item_full + 16), a_full(item_empty + 16),
+        b_full(a_full + 8 * C::STAGES), stage_empty(b_full + 8 * C::STAGES) {}
+};
+
+template <class C, int NWG>
+__device__ __forceinline__ void bwd_init(uint32_t base) {
+  if (threadIdx.x == 0) {
+    const BwdBars<C> bar(base);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar.item_full + 8 * b, 1);    // the producer's expect_tx
+      mbar_init(bar.item_empty + 8 * b, NWG); // one arrive per consumer warpgroup
+    }
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar.a_full + 8 * s, 1);
+      mbar_init(bar.b_full + 8 * s, 1);
+      mbar_init(bar.stage_empty + 8 * s, NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer of a backward TMA kernel, one thread. Work item `it` is rows
+// [r0, r0 + 64 NWG) of head bh, r0 = (it % item_tiles) 64 NWG; block b takes
+// items b, b + gridDim.x, ... (neighbouring blocks share a head, so its
+// streamed tiles come from L2 after the first read). For item i it loads
+// both tiles of each warpgroup (maps i0, i1) into item buffer i % 2, then
+// the head's stream_len rows of maps s0 and s1 as 64-row stages, with, where
+// the kernel has stats, each stage's 64 values of the flat maps st0 (with
+// s0) and st1 (with s1), as STAT_BOX-value boxes from the 16-byte boundary
+// at or below the stage's first value. The buffers and the ring start
+// empty, so the first pass over each waits on parity 1, which a fresh
+// barrier passes.
+template <class C, int NWG>
+__device__ void bwd_produce(uint32_t base, const CUtensorMap* i0, const CUtensorMap* i1,
+                            const CUtensorMap* s0, const CUtensorMap* s1,
+                            const CUtensorMap* st0, const CUtensorMap* st1, int item_tiles,
+                            int stream_len, int items) {
+  const BwdBars<C> bar(base);
+  const int nst = (stream_len + BWD_ROWS - 1) / BWD_ROWS;
+  // bytes a stage's a_full (or b_full) counts: a tile and a stats box
+  constexpr int TX = C::TILE + (C::STATS > 0 ? STAT_BOX * 4 : 0);
+  int n = 0;  // stages issued so far
+  for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+    const int bh = it / item_tiles;
+    const int r0 = (it - bh * item_tiles) * (BWD_ROWS * NWG);
+    const int b = i & 1;
+    mbar_wait(bar.item_empty + 8 * b, ((i >> 1) & 1) ^ 1);
+    mbar_expect_tx(bar.item_full + 8 * b, C::ITEM_BYTES);
+    for (int w = 0; w < NWG; ++w)
+      for (int x = 0; x < 2; ++x)
+        for (int c = 0; c < C::CHUNKS; ++c)
+          tma_load_3d(base + b * C::ITEM_BYTES + (2 * w + x) * C::TILE + c * BWD_CHUNK,
+                      x ? i1 : i0, bar.item_full + 8 * b, 64 * c, r0 + BWD_ROWS * w, bh);
+    for (int j = 0; j < nst; ++j, ++n) {
+      const int s = n % C::STAGES;
+      const uint32_t st = base + C::RING + s * C::STAGE_BYTES;
+      mbar_wait(bar.stage_empty + 8 * s, ((n / C::STAGES) & 1) ^ 1);
+      mbar_expect_tx(bar.a_full + 8 * s, TX);
+      for (int c = 0; c < C::CHUNKS; ++c)
+        tma_load_3d(st + c * BWD_CHUNK, s0, bar.a_full + 8 * s, 64 * c, BWD_ROWS * j, bh);
+      [[maybe_unused]] const int f = (bh * stream_len + BWD_ROWS * j) & ~3;  // stats box
+      if constexpr (C::STATS > 0)
+        tma_load_1d(base + C::STAT + s * C::STATS, st0, bar.a_full + 8 * s, f);
+      mbar_expect_tx(bar.b_full + 8 * s, TX);
+      for (int c = 0; c < C::CHUNKS; ++c)
+        tma_load_3d(st + C::TILE + c * BWD_CHUNK, s1, bar.b_full + 8 * s, 64 * c,
+                    BWD_ROWS * j, bh);
+      if constexpr (C::STATS > 0)
+        tma_load_1d(base + C::STAT + s * C::STATS + STAT_SLOT, st1, bar.b_full + 8 * s, f);
+    }
+  }
+}
+
+// acc (64 x N) = A (64 x DP) B^T with both operands K-major 64-column
+// chunks of 64 rows (B: N = 64 rows of a tile): DP / 16 k16 steps, each 32
+// bytes along both operands' 128-byte rows. Issued, not waited on.
+template <int DP>
+__device__ __forceinline__ void wgmma_tiles_kmajor(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<64>(acc,
+                 smem_desc(a + (kk / 4) * BWD_CHUNK + (kk % 4) * 32, 16, SWIZZLE_ATOM),
+                 smem_desc(b + (kk / 4) * BWD_CHUNK + (kk % 4) * 32, 16, SWIZZLE_ATOM),
+                 kk > 0);
+  wgmma_commit();
+}
+
+// acc (64 x DP) += A (64 x 64, bf16 fragments from registers) B, with B the
+// 64 x DP tile at b read MN-major (transpose-B): k16 step kk is 16 of its
+// rows (2 KB) down each 64-column chunk. Issued, not waited on.
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                              uint32_t b) {
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) fence_operand(acc[x]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<DP>(acc, a[kk], smem_desc(b + kk * 16 * ROW_BYTES, BWD_CHUNK, SWIZZLE_ATOM));
+  wgmma_commit();
+}
+
+// bf16 A fragments of a 64 x 64 f32 accumulator (the accumulator's layout is
+// the A fragment's): k16 step kk is the n8 tiles 2kk and 2kk + 1 (registers
+// 8kk .. 8kk + 7); element e of a step holds row g + 8 (e % 2).
+__device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4][4], const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
+
+template <int DP, int NWG>
+__global__ void __launch_bounds__(BwdTma<DP, NWG, 1>::THREADS, 1)
+flash_dq_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int Lq, int Lk, int nqt, int items,
+                    float scale_log2, float scale) {
+  using C = BwdTma<DP, NWG, 1>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];  // aligned to 1024 below
+  const uint32_t base = (smem_u32(smem_raw) + SWIZZLE_ATOM - 1) & ~uint32_t(SWIZZLE_ATOM - 1);
+  bwd_init<C, NWG>(base);
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {  // items are query tiles; the stream is the head's K and V
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x % 128 == 0)
+      bwd_produce<C, NWG>(base, &q_map, &do_map, &k_map, &v_map, nullptr, nullptr, nqt, Lk,
+                          items);
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows q0 .. q0 + 63 of each item. Its
+  // accumulator layout (wgmma's): lane l of warp w holds rows w*16 + l/4
+  // (+8) and columns 8i + 2(l%4) (+1), in registers 4i + {0, 1} (+{2, 3}).
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const BwdBars<C> bar(base);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const uint32_t out = base + C::OUT + wg * C::TILE;
+  const int nkt = (Lk + BWD_ROWS - 1) / BWD_ROWS;
+  int n = 0;  // stages consumed so far
+  for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+    const int bh = it / nqt;
+    const int q0 = (it - bh * nqt) * (BWD_ROWS * NWG) + BWD_ROWS * wg;
+    const int b = i & 1;
+    const uint32_t qa = base + b * C::ITEM_BYTES + 2 * wg * C::TILE, da = qa + C::TILE;
+    float lse2[2], dl[2];  // this lane's rows: LSE in log2 units, delta
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + warp * 16 + g + 8 * h;
+      lse2[h] = r < Lq ? lse[size_t(bh) * Lq + r] * LOG2E : 0.0f;
+      dl[h] = r < Lq ? delta[size_t(bh) * Lq + r] : 0.0f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) acc[x] = 0.0f;
+    mbar_wait(bar.item_full + 8 * b, (i >> 1) & 1);
+
+    for (int j = 0; j < nkt; ++j, ++n) {
+      const int s = n % C::STAGES;
+      const uint32_t par = (n / C::STAGES) & 1;
+      const uint32_t kt = base + C::RING + s * C::STAGE_BYTES, vt = kt + C::TILE;
+
+      // S = Q K^T, then dP = dO V^T, both in flight while P is computed
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.0f;
+      mbar_wait(bar.a_full + 8 * s, par);  // both waits before any product is in
+      mbar_wait(bar.b_full + 8 * s, par);  // flight: no spin loop runs beside one
+      wgmma_fence();
+      wgmma_tiles_kmajor<DP>(sc, qa, kt);
+      wgmma_tiles_kmajor<DP>(dp, da, vt);
+      wgmma_wait1();
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(sc[x]);
+
+      // P = exp(S d^-1/2 - LSE) in log2 units; keys past Lk give nothing
+      const bool ragged = (j + 1) * BWD_ROWS > Lk;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const float p = ex2(fmaf(sc[x], scale_log2, -lse2[(x >> 1) & 1]));
+        sc[x] = ragged && j * BWD_ROWS + (x / 4) * 8 + 2 * t + (x & 1) >= Lk ? 0.0f : p;
+      }
+      wgmma_wait0();
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(dp[x]);
+      if (j == nkt - 1 && tid == 0) mbar_arrive(bar.item_empty + 8 * b);  // done with Q, dO
+
+      // dS = P (dP - delta), rounded to bf16; dQ += dS K, K read MN-major
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] *= dp[x] - dl[(x >> 1) & 1];
+      uint32_t ds[4][4];
+      frag_from_acc(ds, sc);
+      wgmma_rs_tile<DP>(acc, ds, kt);
+      wgmma_wait0();
+#pragma unroll
+      for (int x = 0; x < DP / 2; ++x) fence_operand(acc[x]);
+      if (tid == 0) mbar_arrive(bar.stage_empty + 8 * s);  // the stage may be refilled
+    }
+
+    // Epilogue: dQ d^-1/2 into the staging tile, one TMA store per chunk
+    if (tid == 0) bulk_wait_read();  // the last item's store has left the tile
+    warpgroup_sync(1 + wg);
+    stage_rows<DP>(out, acc, scale, scale, warp, g, t);
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    if (tid == 0) {
+      for (int c = 0; c < C::CHUNKS; ++c)
+        tma_store_3d(&dq_map, out + c * BWD_CHUNK, 64 * c, q0, bh);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
+template <int DP, int NWG>
+__global__ void __launch_bounds__(BwdTma<DP, NWG, 2>::THREADS, 1)
+flash_dkv_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map,
+                     const __grid_constant__ CUtensorMap lse_map,
+                     const __grid_constant__ CUtensorMap delta_map, int Lq, int Lk, int nkt,
+                     int items, float scale_log2, float scale) {
+  using C = BwdTma<DP, NWG, 2>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];  // aligned to 1024 below
+  const uint32_t base = (smem_u32(smem_raw) + SWIZZLE_ATOM - 1) & ~uint32_t(SWIZZLE_ATOM - 1);
+  bwd_init<C, NWG>(base);
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {  // items are key tiles; the stream is the head's Q, dO, LSE, delta
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x % 128 == 0)
+      bwd_produce<C, NWG>(base, &k_map, &v_map, &q_map, &do_map, &lse_map, &delta_map, nkt,
+                          Lq, items);
+    return;
+  }
+
+  // Consumers: warpgroup wg owns key rows k0 .. k0 + 63 of each item; S^T,
+  // dP^T, P^T and dS^T have keys as rows and queries as columns.
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const BwdBars<C> bar(base);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const uint32_t out = base + C::OUT + 2 * wg * C::TILE;
+  const int nqt = (Lq + BWD_ROWS - 1) / BWD_ROWS;
+  int n = 0;  // stages consumed so far
+  for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+    const int bh = it / nkt;
+    const int k0 = (it - bh * nkt) * (BWD_ROWS * NWG) + BWD_ROWS * wg;
+    const int b = i & 1;
+    const uint32_t ka = base + b * C::ITEM_BYTES + 2 * wg * C::TILE, va = ka + C::TILE;
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) dk[x] = dv[x] = 0.0f;
+    mbar_wait(bar.item_full + 8 * b, (i >> 1) & 1);
+
+    for (int j = 0; j < nqt; ++j, ++n) {
+      const int s = n % C::STAGES;
+      const uint32_t par = (n / C::STAGES) & 1;
+      const uint32_t qt = base + C::RING + s * C::STAGE_BYTES, ot = qt + C::TILE;
+      // the stage's first LSE (delta) value, past the box's 16-byte aligned start
+      const uint32_t stat =
+          base + C::STAT + s * C::STATS + ((bh * Lq + BWD_ROWS * j) & 3) * 4;
+
+      // S^T = K Q^T, then dP^T = V dO^T, both in flight while P^T is computed
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.0f;
+      mbar_wait(bar.a_full + 8 * s, par);  // both waits before any product is in
+      mbar_wait(bar.b_full + 8 * s, par);  // flight: no spin loop runs beside one
+      wgmma_fence();
+      wgmma_tiles_kmajor<DP>(sc, ka, qt);
+      wgmma_tiles_kmajor<DP>(dp, va, ot);
+
+      // this lane's 16 query columns 8c + 2t + e: LSE in log2 units (one
+      // multiply per column and stage), delta
+      float l2[16], dl[16];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t col = (8 * c + 2 * t + e) * 4;
+          l2[2 * c + e] = ld_shared_f32(stat + col) * LOG2E;
+          dl[2 * c + e] = ld_shared_f32(stat + STAT_SLOT + col);
+        }
+      wgmma_wait1();
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(sc[x]);
+
+      // P^T = exp(S^T d^-1/2 - LSE) in log2 units; queries past Lq give nothing
+      const bool ragged = (j + 1) * BWD_ROWS > Lq;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = 2 * (x / 4) + (x & 1);
+        const float p = ex2(fmaf(sc[x], scale_log2, -l2[c]));
+        sc[x] = ragged && j * BWD_ROWS + (x / 4) * 8 + 2 * t + (x & 1) >= Lq ? 0.0f : p;
+      }
+      // dV += P^T dO (P^T rounded to bf16, dO read MN-major), in flight
+      // while dS^T is computed
+      uint32_t pf[4][4];
+      frag_from_acc(pf, sc);
+      wgmma_rs_tile<DP>(dv, pf, ot);
+      wgmma_wait1();  // dP^T is done
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(dp[x]);
+
+      // dS^T = P^T (dP^T - delta), rounded to bf16; dK += dS^T Q, Q MN-major
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] *= dp[x] - dl[2 * (x / 4) + (x & 1)];
+      uint32_t sf[4][4];
+      frag_from_acc(sf, sc);
+      wgmma_rs_tile<DP>(dk, sf, qt);
+      wgmma_wait0();
+#pragma unroll
+      for (int x = 0; x < DP / 2; ++x) {
+        fence_operand(dk[x]);
+        fence_operand(dv[x]);
+      }
+      if (tid == 0) {
+        mbar_arrive(bar.stage_empty + 8 * s);  // the stage may be refilled
+        if (j == nqt - 1) mbar_arrive(bar.item_empty + 8 * b);  // done with K, V
+      }
+    }
+
+    // Epilogue: dK d^-1/2 and dV into their staging tiles, TMA stores
+    if (tid == 0) bulk_wait_read();  // the last item's stores have left the tiles
+    warpgroup_sync(1 + wg);
+    stage_rows<DP>(out, dk, scale, scale, warp, g, t);
+    stage_rows<DP>(out + C::TILE, dv, 1.0f, 1.0f, warp, g, t);
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    if (tid == 0) {
+      for (int c = 0; c < C::CHUNKS; ++c) {
+        tma_store_3d(&dk_map, out + c * BWD_CHUNK, 64 * c, k0, bh);
+        tma_store_3d(&dv_map, out + C::TILE + c * BWD_CHUNK, 64 * c, k0, bh);
+      }
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int DP>
@@ -1052,9 +1505,12 @@ int launch(int which, const Args& a) {
   return int(cudaGetLastError());
 }
 
+bool valid(const Args& a) {
+  return a.BH >= 1 && a.Lq >= 1 && a.Lk >= 1 && a.D >= 1 && a.D <= 256;
+}
+
 int dispatch(int which, const Args& a) {
-  if (a.BH < 1 || a.Lq < 1 || a.Lk < 1 || a.D < 1 || a.D > 256)
-    return int(cudaErrorInvalidValue);
+  if (!valid(a)) return int(cudaErrorInvalidValue);
   if (a.D <= 32) return launch<32>(which, a);
   if (a.D <= 64) return launch<64>(which, a);
   if (a.D <= 128) return launch<128>(which, a);
@@ -1154,24 +1610,126 @@ int fwd_tma(const Args& a) {
   return two ? launch_fwd_tma<128, 2>(a, sms) : launch_fwd_tma<128, 1>(a, sms);
 }
 
+// A 1-D f32 tensor map over the n values of a contiguous (BH, L) tensor, read
+// as one flat row in boxes of STAT_BOX values that start 16-byte aligned;
+// past the end it reads zeros.
+int encode_rows(CUtensorMap* map, const void* base, long long n) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ENCODE_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {0};  // a 1-D map has no stride
+  const cuuint32_t box[1] = {STAT_BOX};
+  const cuuint32_t ones[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + int(r);
+}
+
+template <int DP, int NWG>
+int launch_dq_tma(const Args& a, int sms) {
+  using C = BwdTma<DP, NWG, 1>;
+  const int nqt = (a.Lq + BWD_ROWS * NWG - 1) / (BWD_ROWS * NWG);
+  const long long items = (long long)a.BH * nqt;
+  if (items > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map;  // every map, then the launch
+  int err = encode_heads(&q_map, a.q, a.BH, a.Lq, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&k_map, a.k, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&v_map, a.v, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&do_map, a.dout, a.BH, a.Lq, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&dq_map, a.dq, a.BH, a.Lq, a.D, BWD_ROWS);
+  if (err) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_dq_tma_kernel<DP, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (cerr != cudaSuccess) return int(cerr);
+  const float scale = 1.0f / sqrtf(float(a.D));
+  const int grid = int(items < sms ? items : sms);  // one persistent block per SM
+  flash_dq_tma_kernel<DP, NWG><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.Lq, a.Lk, nqt, int(items), scale * LOG2E, scale);
+  return int(cudaGetLastError());
+}
+
+template <int DP, int NWG>
+int launch_dkv_tma(const Args& a, int sms) {
+  using C = BwdTma<DP, NWG, 2>;
+  const int nkt = (a.Lk + BWD_ROWS * NWG - 1) / (BWD_ROWS * NWG);
+  const long long items = (long long)a.BH * nkt;
+  if (items > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map, lse_map, delta_map;
+  int err = encode_heads(&q_map, a.q, a.BH, a.Lq, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&k_map, a.k, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&v_map, a.v, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&do_map, a.dout, a.BH, a.Lq, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&dk_map, a.dk, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_heads(&dv_map, a.dv, a.BH, a.Lk, a.D, BWD_ROWS);
+  if (!err) err = encode_rows(&lse_map, a.lse, (long long)a.BH * a.Lq);
+  if (!err) err = encode_rows(&delta_map, a.delta, (long long)a.BH * a.Lq);
+  if (err) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_dkv_tma_kernel<DP, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (cerr != cudaSuccess) return int(cerr);
+  const float scale = 1.0f / sqrtf(float(a.D));
+  const int grid = int(items < sms ? items : sms);  // one persistent block per SM
+  flash_dkv_tma_kernel<DP, NWG><<<grid, C::THREADS, C::SMEM, a.stream>>>(
+      q_map, k_map, v_map, do_map, dk_map, dv_map, lse_map, delta_map, a.Lq, a.Lk, nkt,
+      int(items), scale * LOG2E, scale);
+  return int(cudaGetLastError());
+}
+
+// K3 (which 1) or K4 (which 2) by TMA: two consumer warpgroups (128-row
+// items sharing one stream) when D <= 64 and that still gives every SM an
+// item; else one (at D = 128 two warpgroups' buffers do not fit).
+int bwd_tma(int which, const Args& a) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err) return err;
+  const long long rows = which == 1 ? a.Lq : a.Lk;
+  const bool two =
+      a.D <= 64 && (long long)a.BH * ((rows + 2 * BWD_ROWS - 1) / (2 * BWD_ROWS)) >= sms;
+  if (which == 1) {
+    if (a.D > 64) return launch_dq_tma<128, 1>(a, sms);
+    return two ? launch_dq_tma<64, 2>(a, sms) : launch_dq_tma<64, 1>(a, sms);
+  }
+  if (a.D > 64) return launch_dkv_tma<128, 1>(a, sms);
+  return two ? launch_dkv_tma<64, 2>(a, sms) : launch_dkv_tma<64, 1>(a, sms);
+}
+
 }  // namespace
 
 extern "C" {
 
 // K2: o = softmax(q k^T / sqrt(D)) v, lse = logsumexp rows. D % 8 == 0 up to
 // 128 launches the TMA kernel, any other D the mma.sync one. Returns 0 once
-// launched, else a cudaError_t or ENCODE_ERROR + the encode's CUresult.
+// launched, else a cudaError_t or ENCODE_ERROR + the encode's CUresult. The
+// same holds for K3 and K4.
 int rovr_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                         void* lse, int BH, int Lq, int Lk, int D, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
          BH, Lq, Lk, D, static_cast<cudaStream_t>(stream)};
-  if (BH < 1 || Lq < 1 || Lk < 1 || D < 1 || D > 256) return int(cudaErrorInvalidValue);
-  return fwd_takes_tma(D) ? fwd_tma(a) : dispatch(0, a);
+  if (!valid(a)) return int(cudaErrorInvalidValue);
+  return takes_tma(D) ? fwd_tma(a) : dispatch(0, a);
 }
 
-// Which kernel rovr_flash_fwd_bf16 launches for head dim D: 1 the TMA
-// kernel, 0 the mma.sync one.
-int rovr_flash_fwd_route(int D) { return fwd_takes_tma(D) ? 1 : 0; }
+// Which kernel rovr_flash_fwd_bf16 (rovr_flash_bwd_route: rovr_flash_dq_bf16
+// and rovr_flash_dkv_bf16) launches for head dim D: 1 the TMA kernel, 0 the
+// mma.sync one. One rule for both directions.
+int rovr_flash_fwd_route(int D) { return takes_tma(D) ? 1 : 0; }
+int rovr_flash_bwd_route(int D) { return takes_tma(D) ? 1 : 0; }
+
+// Dynamic shared memory of a TMA kernel (which: 0 K2, 1 K3, 2 K4) at DP
+// columns and nwg consumer warpgroups; -1 where no such kernel is built.
+int rovr_flash_tma_smem(int which, int dp, int nwg) {
+  if (which == 0 && dp == 64) return nwg == 2 ? FwdTma<64, 2>::SMEM : FwdTma<64, 1>::SMEM;
+  if (which == 0 && dp == 128) return nwg == 2 ? FwdTma<128, 2>::SMEM : FwdTma<128, 1>::SMEM;
+  const bool dq = which == 1;  // K3 stages one output, K4 two
+  if (which != 1 && which != 2) return -1;
+  if (dp == 64 && nwg == 2) return dq ? BwdTma<64, 2, 1>::SMEM : BwdTma<64, 2, 2>::SMEM;
+  if (dp == 64 && nwg == 1) return dq ? BwdTma<64, 1, 1>::SMEM : BwdTma<64, 1, 2>::SMEM;
+  if (dp == 128 && nwg == 1) return dq ? BwdTma<128, 1, 1>::SMEM : BwdTma<128, 1, 2>::SMEM;
+  return -1;
+}
 
 // Test hook: K2 by the mma.sync kernel whatever D, for comparisons.
 int rovr_flash_fwd_mma_bf16(const void* q, const void* k, const void* v, void* o,
@@ -1187,6 +1745,16 @@ int rovr_flash_dq_bf16(const void* q, const void* k, const void* v, const void* 
                        int Lk, int D, void* stream) {
   Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr,
          BH, Lq, Lk, D, static_cast<cudaStream_t>(stream)};
+  if (!valid(a)) return int(cudaErrorInvalidValue);
+  return takes_tma(D) ? bwd_tma(1, a) : dispatch(1, a);
+}
+
+// Test hook: K3 by the mma.sync kernel whatever D.
+int rovr_flash_dq_mma_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, int BH, int Lq,
+                           int Lk, int D, void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr,
+         BH, Lq, Lk, D, static_cast<cudaStream_t>(stream)};
   return dispatch(1, a);
 }
 
@@ -1194,6 +1762,16 @@ int rovr_flash_dq_bf16(const void* q, const void* k, const void* v, const void* 
 int rovr_flash_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dk, void* dv, int BH,
                         int Lq, int Lk, int D, void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
+         BH, Lq, Lk, D, static_cast<cudaStream_t>(stream)};
+  if (!valid(a)) return int(cudaErrorInvalidValue);
+  return takes_tma(D) ? bwd_tma(2, a) : dispatch(2, a);
+}
+
+// Test hook: K4 by the mma.sync kernel whatever D.
+int rovr_flash_dkv_mma_bf16(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int BH,
+                            int Lq, int Lk, int D, void* stream) {
   Args a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
          BH, Lq, Lk, D, static_cast<cudaStream_t>(stream)};
   return dispatch(2, a);

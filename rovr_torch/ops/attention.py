@@ -19,11 +19,25 @@ thread keeps TMA loads of Q and of the head's K/V tiles in flight (ragged L
 and D zero-filled by TMA), so the next item's loads overlap this item's
 products; one or two consumer warpgroups run S = Q K^T and O += P V as
 `wgmma` (P from registers) with the online softmax in f32 registers; O
-leaves by a TMA store. The `mma.sync` forward stays for D % 8 != 0
-(TMA needs 16-byte row strides) and D > 128 (the TMA kernel's buffers do not
-fit in shared memory); `flash_fwd_route` states the rule, which the C entry
-point applies to each launch. K3 and K4 keep the earlier design: `mma.sync`
-fed by a 2-stage `cp.async` ring, S, P and dS in registers.
+leaves by a TMA store.
+
+K3 (`flash_dq_tma_kernel`, replacing `_dq_kernel`) and K4
+(`flash_dkv_tma_kernel`, replacing `_dkv_kernel`) take the same D and the
+same plan, bound by bytes as K2 is (52-69 GFLOP on 340-407 MB at the PPO
+shape, `attention_cost` in chip_smoke.py): persistent blocks over (head,
+query tile) items for K3 and (head, key tile) items for K4; each item's Q
+and dO (K3) or K and V (K4) arrive once by TMA, and one producer thread
+streams the head's K and V (K3) or Q, dO, LSE and delta (K4) through an
+mbarrier ring; every product is a `wgmma` (S and dP from shared memory, dQ
++= dS K, dV += P^T dO and dK += dS^T Q with P and dS as bf16 from registers
+and the second operand read MN-major, so nothing is transposed by a copy);
+the outputs leave by TMA stores, each written once.
+
+The `mma.sync` kernels of the first port (`flash_fwd_kernel`,
+`flash_dq_kernel`, `flash_dkv_kernel`) stay for D % 8 != 0 (TMA needs
+16-byte row strides) and D > 128 (the TMA kernels' buffers do not fit in
+shared memory); `flash_fwd_route` (and `flash_bwd_route`, the same rule)
+states it, and the C entry points apply it to each launch.
 
 Each kernel has a plain PyTorch twin here, mirroring its arithmetic in f32
 with the kernel's bf16 rounding points (P and dS rounded to the input
@@ -33,8 +47,9 @@ dtype before their second product): `flash_attention_fwd_plain`,
 launch the kernel for CUDA tensors (bf16 q/k/v/dO, f32 lse/delta; anything
 else raises, as does any build, encode or launch error) and add one to their
 own `launches` count; a CPU tensor runs the twin. There is no fallback.
-`flash_attention_fwd_mma` launches the mma.sync forward whatever D: a test hook
-for holding the two forwards against each other, which the port never calls.
+`flash_attention_fwd_mma`, `flash_attention_dq_mma` and
+`flash_attention_dkv_mma` launch the mma.sync kernels whatever D: test hooks
+for holding the two routes against each other, which the port never calls.
 
 `flash_attention(q, k, v)` is the differentiable op: an autograd.Function
 whose forward is K2 and whose backward computes delta = rowsum(dO * O) in
@@ -56,10 +71,14 @@ TMA_MAX_HEAD_DIM = 128
 
 
 def flash_fwd_route(d: int) -> str:
-    """Which kernel K2 launches for head dim d: "tma" (TMA + wgmma) for
-    d % 8 == 0 up to TMA_MAX_HEAD_DIM, else "mma" (the mma.sync
-    kernel). The C entry point applies the same rule (rovr_flash_fwd_route)."""
+    """Which kernel K2 (and K3 and K4: `flash_bwd_route`) launches for head
+    dim d: "tma" (TMA + wgmma) for d % 8 == 0 up to TMA_MAX_HEAD_DIM, else
+    "mma" (the mma.sync kernel). The C entry points apply the same rule
+    (rovr_flash_fwd_route, rovr_flash_bwd_route)."""
     return "tma" if d % 8 == 0 and d <= TMA_MAX_HEAD_DIM else "mma"
+
+
+flash_bwd_route = flash_fwd_route  # one rule for both directions
 
 
 def _scores(q, k):
@@ -140,12 +159,18 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rovr_flash_fwd_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.rovr_flash_fwd_mma_bf16.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.rovr_flash_dq_bf16.argtypes = [p] * 7 + [i] * 4 + [p]
-        lib.rovr_flash_dkv_bf16.argtypes = [p] * 8 + [i] * 4 + [p]
+        for name in ("rovr_flash_dq_bf16", "rovr_flash_dq_mma_bf16"):
+            getattr(lib, name).argtypes = [p] * 7 + [i] * 4 + [p]
+        for name in ("rovr_flash_dkv_bf16", "rovr_flash_dkv_mma_bf16"):
+            getattr(lib, name).argtypes = [p] * 8 + [i] * 4 + [p]
         lib.rovr_flash_fwd_route.argtypes = [i]
+        lib.rovr_flash_bwd_route.argtypes = [i]
+        lib.rovr_flash_tma_smem.argtypes = [i] * 3
         for fn in (lib.rovr_flash_fwd_bf16, lib.rovr_flash_fwd_mma_bf16,
-                   lib.rovr_flash_dq_bf16, lib.rovr_flash_dkv_bf16,
-                   lib.rovr_flash_fwd_route):
+                   lib.rovr_flash_dq_bf16, lib.rovr_flash_dq_mma_bf16,
+                   lib.rovr_flash_dkv_bf16, lib.rovr_flash_dkv_mma_bf16,
+                   lib.rovr_flash_fwd_route, lib.rovr_flash_bwd_route,
+                   lib.rovr_flash_tma_smem):
             fn.restype = ctypes.c_int
         lib.rovr_flash_error_string.argtypes = [ctypes.c_int]
         lib.rovr_flash_error_string.restype = ctypes.c_char_p
@@ -200,31 +225,58 @@ def flash_attention_fwd_mma(q, k, v):
     return _fwd("rovr_flash_fwd_mma_bf16", q, k, v)
 
 
-def flash_attention_dq(q, k, v, do, lse, delta):
-    """K3: dq (B,H,Lq,D). CUDA launches the kernel (counted in
-    `flash_attention_dq.launches`); CPU runs the plain twin."""
-    if not _on_cuda("flash_attention_dq", q):
-        return flash_attention_dq_plain(q, k, v, do, lse, delta)
+def _dq(name: str, q, k, v, do, lse, delta):
     check_kernel_args(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _call("rovr_flash_dq_bf16", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    _call(name, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    return dq
+
+
+def _dkv(name: str, q, k, v, do, lse, delta):
+    check_kernel_args(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _call(name, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    return dk, dv
+
+
+def flash_attention_dq(q, k, v, do, lse, delta):
+    """K3: dq (B,H,Lq,D). A CUDA q launches the kernel `flash_bwd_route`
+    names and adds one to `flash_attention_dq.launches`; a CPU q runs the
+    plain twin."""
+    if not _on_cuda("flash_attention_dq", q):
+        return flash_attention_dq_plain(q, k, v, do, lse, delta)
+    dq = _dq("rovr_flash_dq_bf16", q, k, v, do, lse, delta)
     flash_attention_dq.launches += 1
     return dq
 
 
+def flash_attention_dq_mma(q, k, v, do, lse, delta):
+    """Test hook: K3 by the mma.sync kernel whatever D (CUDA tensors only).
+    The port never calls it, and it counts no K3 launch."""
+    if not _on_cuda("flash_attention_dq_mma", q):
+        raise ValueError("flash_attention_dq_mma launches a CUDA kernel; q is on the CPU")
+    return _dq("rovr_flash_dq_mma_bf16", q, k, v, do, lse, delta)
+
+
 def flash_attention_dkv(q, k, v, do, lse, delta):
-    """K4: (dk, dv), each (B,H,Lk,D). CUDA launches the kernel (counted in
-    `flash_attention_dkv.launches`); CPU runs the plain twin."""
+    """K4: (dk, dv), each (B,H,Lk,D). A CUDA q launches the kernel
+    `flash_bwd_route` names and adds one to `flash_attention_dkv.launches`;
+    a CPU q runs the plain twin."""
     if not _on_cuda("flash_attention_dkv", q):
         return flash_attention_dkv_plain(q, k, v, do, lse, delta)
-    check_kernel_args(q, k, v, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("rovr_flash_dkv_bf16", q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-          dv.data_ptr())
+    out = _dkv("rovr_flash_dkv_bf16", q, k, v, do, lse, delta)
     flash_attention_dkv.launches += 1
-    return dk, dv
+    return out
+
+
+def flash_attention_dkv_mma(q, k, v, do, lse, delta):
+    """Test hook: K4 by the mma.sync kernel whatever D (CUDA tensors only).
+    The port never calls it, and it counts no K4 launch."""
+    if not _on_cuda("flash_attention_dkv_mma", q):
+        raise ValueError("flash_attention_dkv_mma launches a CUDA kernel; q is on the CPU")
+    return _dkv("rovr_flash_dkv_mma_bf16", q, k, v, do, lse, delta)
 
 
 for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):

@@ -7,8 +7,8 @@ machine that has neither JAX nor the repo's test conftest:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The unmarked tests (which K2 kernel a head dim gets, and the wrappers'
-argument checks) run anywhere. chip_smoke.py makes the same kernel-vs-plain
+The unmarked tests (which K2, K3 and K4 kernel a head dim gets, and the
+wrappers' argument checks) run anywhere. chip_smoke.py makes the same kernel-vs-plain
 checks at the main paths' full-size shapes.
 """
 
@@ -40,6 +40,28 @@ K2_SHAPES = {
     "L64_D136": ((1, 1, 64, 64, 136), "mma"),          # D > 128
 }
 KERNEL_NAME = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}
+
+# name: ((B, H, Lq, Lk, D), the K3 and K4 kernels' route). The TMA kernels
+# take 128-row items (two warpgroups) when those still cover the SMs and
+# D <= 64, else 64-row items; "persistent" has more items than SMs.
+BWD_SHAPES = {
+    "rollout": ((8, 4, 256, 256, 64), "tma"),          # 32 heads: 64-row items
+    "persistent": ((64, 4, 256, 256, 64), "tma"),      # 512 items of 128 rows
+    "L100_D32": ((1, 1, 100, 100, 32), "tma"),
+    "L130_D48": ((2, 1, 130, 130, 48), "tma"),
+    "Lq130_Lk70": ((3, 2, 130, 70, 64), "tma"),        # cross, ragged tiles both ways
+    "cross128x200": ((1, 2, 128, 200, 64), "tma"),
+    "wide_Lq300_Lk77": ((40, 4, 300, 77, 64), "tma"),
+    "D128": ((1, 1, 128, 128, 128), "tma"),
+    "wide_D128_cross": ((64, 4, 200, 130, 128), "tma"),
+    "wide_L130": ((64, 4, 130, 130, 64), "tma"),       # a warpgroup's rows all past L
+    "L70_D20": ((1, 2, 70, 70, 20), "mma"),            # D % 8 != 0
+    "L64_D136": ((1, 1, 64, 64, 136), "mma"),          # D > 128
+}
+BWD_KERNEL_NAME = {
+    "dq": {"tma": "flash_dq_tma_kernel", "mma": "flash_dq_kernel"},
+    "dkv": {"tma": "flash_dkv_tma_kernel", "mma": "flash_dkv_kernel"},
+}
 
 
 def _qkv(seed, b, h, lq, lk, d):
@@ -93,6 +115,23 @@ def test_k2_route_edges(d, route):
     assert tops.flash_fwd_route(d) == route
 
 
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_bwd_route_by_shape(name):
+    (_, _, _, _, d), route = BWD_SHAPES[name]
+    assert tops.flash_bwd_route(d) == route
+
+
+@pytest.mark.parametrize("d,route", [
+    (8, "tma"), (16, "tma"), (64, "tma"), (120, "tma"), (128, "tma"),
+    (1, "mma"), (7, "mma"), (20, "mma"), (68, "mma"), (130, "mma"), (136, "mma"),
+    (256, "mma"),
+])
+def test_bwd_route_edges(d, route):
+    """K3 and K4 take K2's rule: TMA for D % 8 == 0 up to 128, the mma.sync
+    kernels for every other D of the wrapper's 1..256."""
+    assert tops.flash_bwd_route(d) == route == tops.flash_fwd_route(d)
+
+
 @pytest.mark.parametrize("bad,err,match", [
     (dict(k_len=9, v_len=8), ValueError, "do not fit"),
     (dict(d=0), ValueError, "1 <= D"),
@@ -129,10 +168,13 @@ def test_wrapper_arg_checks_accept_the_paths_shapes():
         tops.check_kernel_args(q, kv, kv)
 
 
-def test_mma_hook_refuses_cpu_tensors():
+@pytest.mark.parametrize("hook", ["fwd", "dq", "dkv"])
+def test_mma_hook_refuses_cpu_tensors(hook):
     q = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16)
+    stats = torch.zeros(1, 1, 8)
+    args = (q, q, q) if hook == "fwd" else (q, q, q, q, stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
-        tops.flash_attention_fwd_mma(q, q, q)
+        getattr(tops, f"flash_attention_{hook}_mma")(*args)
 
 
 def test_cpu_forward_runs_the_twin_and_counts_no_launch():
@@ -172,6 +214,41 @@ def test_k2_matches_plain_on_its_route(cuda, name):
         assert torch.isfinite(got.float()).all()
         assert _close(got, o_p)
         assert (got_lse - lse_p).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_bwd_matches_plain_on_its_route(cuda, name, kernel):
+    """K3 or K4 against its plain twin, fed K2's O and LSE: the kernel the
+    profiler saw is the one the route names and the other route's did not
+    run, the launch count rose by one, and the mma.sync kernel (its test
+    hook, which counts nothing) is within the tolerance of the twin too."""
+    (b, h, lq, lk, d), route = BWD_SHAPES[name]
+    q, k, v, g = (torch.from_numpy(a).cuda().bfloat16() for a in _qkv(11, b, h, lq, lk, d))
+    assert tops._lib().rovr_flash_bwd_route(d) == (route == "tma")
+    o, lse = tops.flash_attention_fwd(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    wrapper = getattr(tops, f"flash_attention_{kernel}")
+    before = wrapper.launches
+    out = {}
+    ran = _kernels_run(lambda: out.update(kernel=wrapper(q, k, v, g, lse, delta)))
+    assert wrapper.launches == before + 1
+    names = BWD_KERNEL_NAME[kernel]
+    assert any(names[route] in n for n in ran), ran
+    other = names["mma" if route == "tma" else "tma"]
+    assert not any(other in n for n in ran), ran
+    hook = getattr(tops, f"flash_attention_{kernel}_mma")(q, k, v, g, lse, delta)
+    plain = getattr(tops, f"flash_attention_{kernel}_plain")(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1  # the hook counts none
+    got = out["kernel"]
+    if kernel == "dq":
+        got, hook, plain = (got,), (hook,), (plain,)
+    for a, m, r in zip(got, hook, plain):
+        assert torch.isfinite(a.float()).all()
+        assert _close(a, r)
+        assert _close(m, r)
 
 
 @pytest.mark.cuda
