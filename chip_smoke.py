@@ -54,20 +54,43 @@ after. Phases:
      the actor's and critic's parameters; sec/step, frames/s, peak memory;
  11. one config-5 train step taken in parts (episode init, rollout, PPO),
      host-timed, then one under torch.profiler: device time by kernel, the
-     idle share, and K2-K4's launches by kernel (every one the TMA route).
+     idle share, and K2-K4's launches by kernel (every one the TMA route);
+ 12. the RL loop `rl.run` at config 5 on phase 9's clips (with their
+     masks): 3 iterations, a checkpoint and metrics every iteration; each
+     iteration must launch exactly 150 K2, 20 K3, 20 K4 and 192 K1;
+     metrics.jsonl finite with Episode/exposure, the image strip written,
+     the newest checkpoint restored bit for bit; one more iteration from
+     `restore_from` continues state.step; seconds per iteration, the
+     checkpoint's bytes, save time on the training thread against the
+     background write, peak memory;
+ 13. one config-5 train step with the RAFT spatio signal (`log_spatio`):
+     the same launch counts, a finite Episode/spatio; RAFT's time within it;
+ 14. evaluation at config 5 on the same clips: one `evaluate.run` batch
+     (flow size 256; exactly 384 K1 and 128 K2, no K3 or K4) and one
+     `run_ci` batch with 2 draws (576 K1, 256 K2); every metric finite, the
+     sequential output unlike the agentic one; host seconds, one
+     `eval_step` under torch.profiler with RAFT's device time, peak memory;
+ 15. the command line: `cli.main(["rl", ...])` at Config() widths, batch 8,
+     2 iterations (exactly 60 K1 per iteration, finite metrics, a
+     checkpoint), then `python -m rovr_torch rl --iterations 1` and
+     `python -m rovr_torch reconstruct --restore_from` its checkpoint as
+     subprocesses (exit 0, frames written, restored).
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the rovr_torch package
 beside this file; without either it exits non-zero and prints no result.
-Writes the full record to chiprun_out/chip_smoke.json.
+Writes the full record to chiprun_out/chip_smoke.json; the run directories
+of phases 12-15 go under chiprun_out/ too, their checkpoints deleted at the end.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -101,6 +124,9 @@ ATTN_TOL = 2e-2   # bf16 outputs (2^-8) and P, dS rounded to bf16
 LSE_TOL = 1e-3    # absolute, f32 LSE
 POLICY_TOL = 5e-2  # kernel vs plain attention path through the whole policy
 TRAIN_STEPS = 3    # timed config-5 train steps after one warm-up
+RUN_ITERS = 3      # rl.run iterations at config 5
+FLOW_SIZE = 256    # RAFT's input size in the config-5 evaluation
+TRAIN_LAUNCHES = {"K1": 192, "K2": 150, "K3": 20, "K4": 20}  # per config-5 step
 
 
 def log(msg: str) -> None:
@@ -696,13 +722,16 @@ def phase_policy(torch, attention, cfg, flax_init_state):
 
 
 def config5_clips(torch, np, synthetic, cfg):
-    """uint8 (corrupted, original) clips of config 5, batch 8, on the card."""
+    """uint8 (corrupted, original) clips of config 5, batch 8, on the card,
+    their float masks, and the host seconds the synthetic source took."""
     b, s = cfg.rl.batch_size, cfg.rl.vid_length
     h, w = cfg.data.frame_size
-    data = [synthetic.synthetic_batch(200 + j, s, h, w) for j in range(b)]
-    u8 = [np.clip(np.stack([d[i] for d in data]) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-          for i in (0, 1)]
-    return u8[0], [torch.from_numpy(x).cuda() for x in u8]
+    t0 = time.time()
+    data = synthetic.synthetic_clips(200, 0, b, s, h, w)
+    source_s = time.time() - t0
+    u8 = [np.clip(data[i] * 255.0 + 0.5, 0, 255).astype(np.uint8) for i in (0, 1)]
+    masks = torch.from_numpy(data[2]).cuda()
+    return u8[0], [torch.from_numpy(x).cuda() for x in u8], masks, source_s
 
 
 def phase_serving5(torch, np, conv, attention, infer, cfg, state, mods, u8):
@@ -750,7 +779,7 @@ def _moved(new, old):
 
 def phase_train5(torch, conv, attention, rl, cfg, state, mods, video, org):
     """Config-5 train steps: one warm-up, then TRAIN_STEPS timed steps."""
-    per_step = {"K1": 192, "K2": 150, "K3": 20, "K4": 20}
+    per_step = TRAIN_LAUNCHES
     gen = torch.Generator(device="cuda").manual_seed(7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -862,6 +891,309 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
     return res
 
 
+class ClipSource:
+    """A clip source for `rl.run` and `evaluate` (`next(i)` -> (corrupted, original, masks)):
+    the same batch built once on the card, so a phase times the loop and
+    not the host synthetic source."""
+
+    def __init__(self, video, org, masks):
+        self.batch = (video, org, masks)
+
+    def next(self, i):
+        return self.batch
+
+
+def _same_tree(a, b) -> bool:
+    """Equal structure, dtypes and values, bit for bit."""
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a) is type(b) and all(_same_tree(getattr(a, f), getattr(b, f))
+                                          for f in a._fields)
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    if hasattr(a, "dtype") and hasattr(a, "device"):
+        import torch
+
+        return a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+    return a == b
+
+
+def _run_records(run_root: str, experiment: str):
+    """The metrics.jsonl records of the one run under run_root/experiment,
+    checked finite, and that run's directory."""
+    (path,) = glob.glob(os.path.join(run_root, experiment, "*", "metrics.jsonl"))
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [r for r in recs if not math.isfinite(r["value"])]
+    if not recs or bad:
+        raise AssertionError(f"{path}: {len(recs)} records, non-finite {bad[:3]}")
+    return recs, os.path.dirname(path)
+
+
+def _drop_checkpoints(run_root: str) -> None:
+    """Checkpoints are hundreds of MB at config 5: keep the logs only."""
+    for ck in glob.glob(os.path.join(run_root, "*", "*", "checkpoints")):
+        shutil.rmtree(ck)
+
+
+def phase_rl_run5(torch, conv, attention, rl, checkpoint, cfg, source, out_dir):
+    """`rl.run` at config 5: RUN_ITERS iterations with a checkpoint and
+    metrics each, then one more from `restore_from`."""
+    import dataclasses
+
+    run_root = os.path.join(out_dir, "smoke_rl_run")
+    shutil.rmtree(run_root, ignore_errors=True)
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, run_dir=run_root, seed=0,
+                                              checkpoint_every=1, log_every=1,
+                                              restore_from=None))
+    marks = []
+
+    def log_cb(i, metrics):  # after iteration i's step, before its checkpoint
+        torch.cuda.synchronize()
+        marks.append((time.time(), _counts(conv, attention)))
+
+    dev = source.batch[0].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are rl.run's
+    t0 = time.time()
+    state = rl.run(cfg, iterations=RUN_ITERS, log_cb=log_cb, source=source, device=dev)
+    total_s = time.time() - t0
+    prev_c, prev_t, iter_s = {k: 0 for k in TRAIN_LAUNCHES}, t0, []
+    for i, (t, c) in enumerate(marks):
+        d = {k: c[k] - prev_c[k] for k in c}
+        if d != TRAIN_LAUNCHES:
+            raise AssertionError(f"rl.run iteration {i} launched {d}, expected {TRAIN_LAUNCHES}")
+        iter_s.append(t - prev_t)
+        prev_c, prev_t = c, t
+    if len(marks) != RUN_ITERS or state.step != RUN_ITERS:
+        raise AssertionError(f"rl.run took {len(marks)} logged steps, state.step {state.step}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    recs, path = _run_records(run_root, "rovr_rl")
+    tags = {r["tag"] for r in recs}
+    if "Episode/exposure" not in tags or {r["step"] for r in recs} != set(range(RUN_ITERS)):
+        raise AssertionError(f"rl.run metrics: tags {sorted(tags)}")
+    images = glob.glob(os.path.join(path, "images", "*.png")) or glob.glob(
+        os.path.join(path, "events.out.tfevents*"))
+    if not images:
+        raise AssertionError("rl.run wrote no image strip")
+    ck = checkpoint.latest_checkpoint_dir(run_root, "rovr_rl")
+    steps = sorted(os.listdir(ck))
+    restored = checkpoint.CheckpointManager(ck).restore(template=state)
+    if steps != [str(i) for i in range(RUN_ITERS)] or not _same_tree(restored, state):
+        raise AssertionError(f"checkpoint {ck} ({steps}) does not restore the state")
+    ck_bytes = os.path.getsize(os.path.join(ck, steps[-1], "state.pt"))
+
+    probe = checkpoint.CheckpointManager(os.path.join(run_root, "probe"))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    probe.save(0, state)   # the host copy, on this thread
+    t2 = time.time()
+    probe.wait()           # the write, on the background thread
+    save_s, wait_s = t2 - t1, time.time() - t2
+    shutil.rmtree(probe.directory)
+
+    resume = cfg.replace(run=dataclasses.replace(cfg.run, restore_from=ck))
+    _zero_counts(conv, attention)   # the resumed run's own counts
+    t1 = time.time()
+    resumed = rl.run(resume, iterations=1, source=source, device=dev)
+    resume_s = time.time() - t1
+    counts = _counts(conv, attention)
+    if resumed.step != state.step + 1 or counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"resumed run: step {resumed.step} after {state.step}, "
+                             f"launches {counts}")
+    _drop_checkpoints(run_root)
+    res = dict(iterations=RUN_ITERS, iter_s=iter_s, total_s=total_s, resume_s=resume_s,
+               launches_per_iteration=TRAIN_LAUNCHES, checkpoint_bytes=ck_bytes,
+               save_s=save_s, wait_s=wait_s, peak_mem_gb=peak, state_step=state.step,
+               resumed_step=resumed.step, metric_tags=sorted(tags),
+               last=[r for r in recs if r["step"] == RUN_ITERS - 1])
+    log(f"config-5 rl.run: {RUN_ITERS} iterations in {total_s:.2f} s (per iteration "
+        + ", ".join(f"{x:.3f}" for x in iter_s) + " s; the first includes set-up), "
+        f"launches {TRAIN_LAUNCHES} each; checkpoint {ck_bytes / 1e6:.1f} MB, save "
+        f"{save_s:.3f} s on the training thread + {wait_s:.3f} s written in the "
+        f"background; restored bit for bit; resumed run {resume_s:.2f} s to step "
+        f"{resumed.step}; peak {peak:.2f} GB")
+    return res, state
+
+
+def phase_spatio5(torch, conv, attention, rl, cfg, video, org, masks):
+    """One config-5 train step with the RAFT spatio signal (log_spatio)."""
+    import dataclasses
+
+    cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, log_spatio=True))
+    mods = rl.make_modules(cfg, device=video.device)
+    state = rl.init_state(cfg, mods, seed=0)
+    gen = torch.Generator(device=video.device).manual_seed(12)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are this step's
+    t0 = time.time()
+    _, metrics, recon = rl.train_step(state, mods, cfg, video, org, generator=gen,
+                                      masks=masks)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    counts = _counts(conv, attention)
+    m = _finite_metrics(metrics)
+    if counts != TRAIN_LAUNCHES or "Episode/spatio" not in m:
+        raise AssertionError(f"spatio train step: launches {counts}, metrics {sorted(m)}")
+    v, o = (x.float() * (1.0 / 255.0) for x in (video, org))
+
+    def spatio():  # the step's three RAFT passes (recon, original, corrupted)
+        return rl._spatio(state, mods, cfg, recon, o, v)
+
+    raft_ms = cuda_ms(spatio, iters=1, warmup=0)
+    raft_dev_ms = profiled_ms(torch, spatio, None, iters=1)
+    res = dict(step_s=step_s, launches=counts, metrics=m, raft_ms=raft_ms,
+               raft_device_ms=raft_dev_ms, flow_size=rl.resolved_flow_size(cfg),
+               pairs=3 * video.shape[0] * (video.shape[1] - 1),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"config-5 train step with log_spatio: {step_s:.3f} s, launches {counts}, "
+        f"Episode/spatio {m['Episode/spatio']:.4f}; RAFT's three passes ({res['pairs']} "
+        f"pairs at {res['flow_size']}^2) {raft_ms:.1f} ms events, {raft_dev_ms:.1f} ms "
+        f"device; peak {res['peak_mem_gb']:.2f} GB")
+    return res
+
+
+def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_dir):
+    """One evaluate.run batch and one run_ci batch (2 draws) at config 5;
+    one eval_step under torch.profiler, RAFT's device time beside it."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+
+    from rovr_torch.models.raft import pairwise_flows, total_flow_magnitude
+
+    run_root = os.path.join(out_dir, "smoke_eval")
+    shutil.rmtree(run_root, ignore_errors=True)
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, run_dir=run_root))
+    b, t_steps, depth = cfg.rl.batch_size, cfg.rl.time_steps, cfg.model.attn_depth
+    dev = source.batch[0].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are evaluate.run's
+    t0 = time.time()
+    means = evaluate.run(cfg, num_videos=b, state=state, flow_size=FLOW_SIZE, source=source,
+                         device=dev)
+    run_s = time.time() - t0
+    counts = _counts(conv, attention)
+    # 3 K1 per UNet call (agentic and sequential each step), K2 per policy
+    # act per encoder block: 384 and 128 at config 5
+    want = {"K1": 3 * 2 * t_steps, "K2": depth * t_steps, "K3": 0, "K4": 0}
+    if counts != want:
+        raise AssertionError(f"evaluate.run launched {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"non-finite eval metric: {means}")
+    if means["Eval/psnr_agentic"] == means["Eval/psnr_sequential"]:
+        raise AssertionError("the sequential baseline equals the agentic output")
+    _run_records(run_root, "eval")
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+
+    mods = evaluate.make_modules(cfg, device=dev)
+    raft = evaluate.init_raft_params(mods, 0)
+    batch = source.next(0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        evaluate.eval_step(state, raft, mods, cfg, batch, FLOW_SIZE)
+        torch.cuda.synchronize()
+        step_wall_ms = (time.time() - t1) * 1e3
+    rows = sorted((dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and getattr(e, "self_device_time_total", 0) > 0), key=lambda r: -r["ms"])
+    busy_ms = sum(r["ms"] for r in rows)
+    org = batch[1].float() * (1.0 / 255.0)
+    with torch.no_grad():
+        phi_ms = profiled_ms(torch, lambda: total_flow_magnitude(
+            pairwise_flows(mods.raft, org, FLOW_SIZE)), None, iters=1)
+    raft_ms = 4 * phi_ms   # eval_step runs four passes of the same shape
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are run_ci's
+    t1 = time.time()
+    ci = evaluate.run_ci(cfg, state=state, num_videos=b, sample_draws=2, mods=mods,
+                         source=source)
+    ci_s = time.time() - t1
+    ci_counts = _counts(conv, attention)
+    # the greedy pass as above, then the sampled pass (agentic only) on the
+    # 2 replicas: 576 K1 and 256 K2 at config 5
+    want = {"K1": 3 * 3 * t_steps, "K2": depth * 2 * t_steps, "K3": 0, "K4": 0}
+    if ci_counts != want:
+        raise AssertionError(f"run_ci launched {ci_counts}, expected {want}")
+    flat = [x for ms in ci["per_clip"].values() for v in ms.values() for x in v]
+    if len(flat) == 0 or not all(math.isfinite(x) for x in flat):
+        raise AssertionError("non-finite run_ci metric")
+    g = ci["per_clip"]["greedy"]
+    if g["psnr_agentic"] == g["psnr_sequential"]:
+        raise AssertionError("run_ci: the sequential baseline equals the agentic output")
+    res = dict(run_s=run_s, launches=counts, means=means, peak_mem_gb=peak_run,
+               eval_step_wall_ms=step_wall_ms, eval_step_device_ms=busy_ms,
+               eval_step_idle_share=(1 - busy_ms / step_wall_ms) if busy_ms else None,
+               raft_device_ms=raft_ms, raft_share=(raft_ms / busy_ms) if busy_ms else None,
+               eval_step_top=rows[:20],
+               ci_s=ci_s, ci_launches=ci_counts, ci_summary=ci["summary"],
+               ci_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"config-5 evaluate.run (1 batch of {b}): {run_s:.2f} s, launches {counts}, "
+        f"peak {peak_run:.2f} GB; means " + ", ".join(
+            f"{k.split('/')[-1]} {v:.4f}" for k, v in sorted(means.items())))
+    log(f"config-5 eval_step under the profiler: wall {step_wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, RAFT (4 passes x {b * (cfg.rl.vid_length - 1)} pairs) "
+        f"{raft_ms:.1f} ms of device "
+        f"time ({res['raft_share'] or 0:.3f} of the step's)")
+    for r in rows[:20]:
+        log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
+    log(f"config-5 run_ci (1 batch, 2 draws): {ci_s:.2f} s, launches {ci_counts}, peak "
+        f"{res['ci_peak_mem_gb']:.2f} GB")
+    del mods
+    return res
+
+
+def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
+    """The command line: `rl` in this process at Config() widths, then
+    `python -m rovr_torch rl` and `reconstruct --restore_from` as
+    subprocesses."""
+    run_root = os.path.join(out_dir, "smoke_cli")
+    shutil.rmtree(run_root, ignore_errors=True)
+    _zero_counts(conv, attention)   # counts from here are the CLI run's
+    t0 = time.time()
+    rc = cli.main(["rl", "--batch_size", "8", "--iterations", "2", "--run_dir", run_root])
+    main_s = time.time() - t0
+    counts = _counts(conv, attention)
+    if rc != 0 or counts != {"K1": 3 * 20 * 2, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"cli rl: rc {rc}, launches {counts}, expected K1 60 x 2")
+    recs, _ = _run_records(run_root, "rovr_rl")
+    if checkpoint.latest_checkpoint_dir(run_root, "rovr_rl") is None:
+        raise AssertionError("cli rl wrote no checkpoint")
+    env = dict(os.environ, PYTHONPATH=here)
+    sub_root = os.path.join(run_root, "sub")
+
+    def python_m(*args):
+        t = time.time()
+        out = subprocess.run([sys.executable, "-m", "rovr_torch", *args], cwd=here, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"python -m rovr_torch {' '.join(args)}: rc "
+                                 f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        return out.stdout, time.time() - t
+
+    _, rl_s = python_m("rl", "--iterations", "1", "--run_dir", sub_root)
+    ck = checkpoint.latest_checkpoint_dir(sub_root, "rovr_rl")
+    frames = os.path.join(run_root, "frames")
+    printed, rec_s = python_m("reconstruct", "--restore_from", ck, "--out", frames)
+    n_png = len(glob.glob(os.path.join(frames, "*", "*.png")))
+    if "restored: True" not in printed or n_png == 0:
+        raise AssertionError(f"reconstruct: {printed}")
+    shutil.rmtree(frames)
+    _drop_checkpoints(run_root)
+    _drop_checkpoints(sub_root)
+    res = dict(main_s=main_s, launches=counts, records=len(recs), subprocess_rl_s=rl_s,
+               subprocess_reconstruct_s=rec_s, frames_written=n_png,
+               reconstruct_stdout=printed)
+    log(f"cli: rl in-process (Config(), batch 8, 2 iterations) {main_s:.2f} s, launches "
+        f"{counts}; python -m rovr_torch rl {rl_s:.2f} s; reconstruct --restore_from "
+        f"{rec_s:.2f} s, {n_png} frames, restored")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -876,13 +1208,14 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from rovr_torch import infer
+    from rovr_torch import cli, infer
     from rovr_torch.config import Config
     from rovr_torch.data import synthetic
     from rovr_torch.models.layers import flax_init_state
     from rovr_torch.models.local_net import LocalNetUNet
     from rovr_torch.ops import attention, conv, cuda_build
-    from rovr_torch.train import rl
+    from rovr_torch.train import evaluate, rl
+    from rovr_torch.utils import checkpoint
 
     t_start = time.time()
     card = card_line()
@@ -932,14 +1265,27 @@ def main() -> int:
     t0 = time.time()
     mods5 = rl.make_modules(cfg5, device="cuda")
     state5 = rl.init_state(cfg5, mods5, seed=0)
-    u8_5, (video5, org5) = config5_clips(torch, np, synthetic, cfg5)
+    u8_5, (video5, org5), masks5, source5_s = config5_clips(torch, np, synthetic, cfg5)
     setup5_s = time.time() - t0
-    log(f"config-5 set-up (modules, init, 8 x 64 clips): {setup5_s:.2f} s")
+    log(f"config-5 set-up (modules, init, 8 x 64 clips): {setup5_s:.2f} s, of which the "
+        f"host synthetic source {source5_s:.2f} s for the batch of clips")
     serving5 = phase_serving5(torch, np, conv, attention, infer, cfg5, state5, mods5, u8_5)
     train5, state5 = phase_train5(torch, conv, attention, rl, cfg5, state5, mods5,
                                   video5, org5)
     split5 = phase_split_train(torch, rl, cfg5, state5, mods5, video5, org5)
     profile5 = phase_profile_train(torch, rl, cfg5, state5, mods5, video5, org5)
+    del mods5
+    torch.cuda.empty_cache()
+    source = ClipSource(video5, org5, masks5)
+    rl_run5, state_run5 = phase_rl_run5(torch, conv, attention, rl, checkpoint, cfg5,
+                                        source, out_dir)
+    torch.cuda.empty_cache()
+    spatio5 = phase_spatio5(torch, conv, attention, rl, cfg5, video5, org5, masks5)
+    torch.cuda.empty_cache()
+    eval5 = phase_eval5(torch, conv, attention, evaluate, rl, cfg5, state_run5, source,
+                        out_dir)
+    torch.cuda.empty_cache()
+    cli_res = phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -1014,9 +1360,10 @@ def main() -> int:
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, attention=attn, unet=unet, serving=serving,
                   profile=profile, rollout_rewards=rewards, policy5=policy,
-                  setup5_s=setup5_s, serving5=serving5, train5=train5,
-                  split_train5=split5, profile_train5=profile5, kernels=kernels,
-                  seconds=time.time() - t_start)
+                  setup5_s=setup5_s, source5_s=source5_s, serving5=serving5,
+                  train5=train5, split_train5=split5, profile_train5=profile5,
+                  rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
+                  kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
     log(f"chip_smoke: all phases passed in {record['seconds']:.1f} s")

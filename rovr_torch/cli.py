@@ -1,0 +1,235 @@
+"""Command line of the PyTorch port: `python -m rovr_torch <cmd> [flags]`
+(rovr_tpu/cli.py).
+
+Subcommands `rl` (RL training, `train.rl.run`), `eval` (agentic against
+sequential reconstruction, `train.evaluate.run`) and `reconstruct`
+(inference, `infer.run`), with the JAX package's flags and defaults, built
+on `Config()` as it builds them. `--device` picks where the port runs: the
+GPU unless `cpu` is asked for; it never falls back. `pretrain`, `imitate`,
+`pipeline` and `convert` are not ported yet and say so.
+
+Flags whose machinery is not ported raise NotImplementedError: folder
+datasets (`--root_folder` naming a directory), `--warm_start` (it reads the
+JAX `convert`'s Orbax output), `--use_policy1`/`--ppo_policy1` and
+`--data_parallel` > 1; each error names its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+from typing import List, Optional
+
+from rovr_torch.config import Config
+
+NOT_PORTED = {
+    "pretrain": "ROADMAP.md Queue 1 item 4",
+    "imitate": "ROADMAP.md Queue 1 item 4",
+    "pipeline": "ROADMAP.md Queue 1 item 4",
+    "convert": "ROADMAP.md Queue 1 item 7",
+}
+
+
+def _base_parser(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--root_folder", type=str, default=None,
+                   help="frame-folder dataset root (default: synthetic clips)")
+    p.add_argument("--run_dir", type=str, default="runs")
+    p.add_argument("--restore_from", type=str, default=None,
+                   help="checkpoints directory to resume from")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--debug_short_dataset", action="store_true",
+                   help="truncate the dataset to 10 items")
+    p.add_argument("--device", type=str, default=None,
+                   help="where to run: the GPU by default, or 'cpu'")
+
+
+def _apply_base(cfg: Config, args) -> Config:
+    data = dataclasses.replace(
+        cfg.data, root_folder=args.root_folder or cfg.data.root_folder,
+        debug_short_dataset=args.debug_short_dataset)
+    run = dataclasses.replace(cfg.run, run_dir=args.run_dir,
+                              restore_from=args.restore_from, seed=args.seed)
+    return cfg.replace(data=data, run=run)
+
+
+def _check_dataset(args) -> None:
+    """The JAX CLI reads a frame-folder dataset when --root_folder names a
+    directory; the port has no folder readers yet."""
+    if args.root_folder and os.path.isdir(args.root_folder):
+        raise NotImplementedError(
+            "frame-folder datasets are not in the port yet (ROADMAP.md Queue 1 "
+            "item 6); without --root_folder the port uses synthetic clips")
+
+
+def _check_warm_start(args) -> None:
+    if args.warm_start:
+        raise NotImplementedError(
+            "--warm_start reads the Orbax output of `rovr_tpu convert`; the port's "
+            "convert is not written yet (ROADMAP.md Queue 1 item 7)")
+
+
+def _print_metrics(tag: str):
+    def log(i, m):
+        print(f"[{tag} {i}] " + " ".join(f"{k}={float(v):.4f}" for k, v in m.items()),
+              flush=True)
+    return log
+
+
+def rl_config(argv: List[str]):
+    """(cfg, args) of `rl`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch rl")
+    p.add_argument("--vid_length", type=int, default=20)
+    p.add_argument("--time_steps", type=int, default=20)
+    p.add_argument("--n_updates_per_ppo", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=1, help="clips per step")
+    p.add_argument("--use_policy1", action="store_true",
+                   help="the frame-selection policy + LSTM path (not ported)")
+    p.add_argument("--ppo_policy1", action="store_true",
+                   help="also train pi1/V1 with PPO (not ported)")
+    p.add_argument("--context_policy", choices=("canvas", "attention"), default="canvas",
+                   help="canvas=PolicyNet2, attention=transformer over frame tokens")
+    p.add_argument("--sequential_baseline", action="store_true",
+                   help="also run the no-grad vid2vid baseline per step (a second "
+                        "UNet pass)")
+    p.add_argument("--iterations", type=int, default=400, help="hard stop")
+    p.add_argument("--warm_start", type=str, default=None,
+                   help="directory written by `rovr_tpu convert` (not ported)")
+    _base_parser(p)
+    args = p.parse_args(argv)
+    cfg = _apply_base(Config(), args)
+    cfg = cfg.replace(
+        rl=dataclasses.replace(
+            cfg.rl, vid_length=args.vid_length, time_steps=args.time_steps,
+            n_updates_per_ppo=args.n_updates_per_ppo, batch_size=args.batch_size,
+            use_policy1=args.use_policy1 or args.ppo_policy1,
+            ppo_policy1=args.ppo_policy1, context_policy=args.context_policy,
+            sequential_baseline=args.sequential_baseline),
+        data=dataclasses.replace(cfg.data, vid_length=args.vid_length),
+    )
+    return cfg, args
+
+
+def cmd_rl(argv: List[str]) -> int:
+    """RL training."""
+    cfg, args = rl_config(argv)
+    if args.use_policy1 or args.ppo_policy1:
+        raise NotImplementedError(
+            "--use_policy1/--ppo_policy1: the pi1 path is not in the port yet "
+            "(ROADMAP.md Queue 1 item 5)")
+    _check_warm_start(args)
+    _check_dataset(args)
+    from rovr_torch.train import rl
+
+    rl.run(cfg, iterations=args.iterations, log_cb=_print_metrics("rl"),
+           device=args.device)
+    return 0
+
+
+def eval_config(argv: List[str]):
+    """(cfg, args) of `eval`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch eval")
+    p.add_argument("--num_videos", type=int, default=20, help="rollouts to average")
+    p.add_argument("--vid_length", type=int, default=20)
+    p.add_argument("--flow_size", type=int, default=256)
+    p.add_argument("--warm_start", type=str, default=None,
+                   help="directory written by `rovr_tpu convert` (not ported)")
+    p.add_argument("--force", action="store_true",
+                   help="print the weight-dependent metrics (flow_recovery_*, "
+                        "lpips_*) even under random metric weights")
+    _base_parser(p)
+    args = p.parse_args(argv)
+    cfg = _apply_base(Config(), args)
+    cfg = cfg.replace(
+        rl=dataclasses.replace(cfg.rl, vid_length=args.vid_length,
+                               time_steps=args.vid_length),
+        data=dataclasses.replace(cfg.data, vid_length=args.vid_length),
+    )
+    return cfg, args
+
+
+def cmd_eval(argv: List[str]) -> int:
+    """Reconstruction eval: agentic against sequential flow recovery."""
+    cfg, args = eval_config(argv)
+    _check_warm_start(args)
+    _check_dataset(args)
+    from rovr_torch.train import evaluate
+
+    means = evaluate.run(cfg, num_videos=args.num_videos, flow_size=args.flow_size,
+                         device=args.device)
+    # Random metric weights: flow recovery and LPIPS are not comparable to
+    # the poster's numbers, so they print only with --force.
+    untrusted = means.get("Eval/metric_weights_random", 1.0) == 1.0 and not args.force
+    withheld = []
+    for k, v in sorted(means.items()):
+        if untrusted and ("flow_recovery" in k or "/lpips" in k):
+            withheld.append(k)
+            continue
+        print(f"{k}: {v:.4f}")
+    if withheld:
+        print(f"[rovr_torch.eval] {len(withheld)} weight-dependent metrics withheld "
+              "(random VGG/RAFT weights; not poster-comparable). Pass --force to "
+              "print them.")
+    return 0
+
+
+def reconstruct_config(argv: List[str]):
+    """(cfg, args) of `reconstruct`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch reconstruct")
+    p.add_argument("--num_clips", type=int, default=4)
+    p.add_argument("--vid_length", type=int, default=20)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--context_policy", choices=("canvas", "attention"), default="canvas")
+    p.add_argument("--out", type=str, default="reconstructed")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="shard the clip batch over this many devices (not ported)")
+    _base_parser(p)
+    args = p.parse_args(argv)
+    cfg = _apply_base(Config(), args)
+    cfg = cfg.replace(
+        rl=dataclasses.replace(
+            cfg.rl, vid_length=args.vid_length, time_steps=args.vid_length,
+            batch_size=args.batch_size, context_policy=args.context_policy),
+        data=dataclasses.replace(cfg.data, vid_length=args.vid_length),
+    )
+    return cfg, args
+
+
+def cmd_reconstruct(argv: List[str]) -> int:
+    """Inference: reconstruct corrupted clips with a trained checkpoint and
+    write frames as <out>/<clip>/<frame>.png."""
+    cfg, args = reconstruct_config(argv)
+    if args.data_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel > 1: data-parallel serving is not in the port yet "
+            "(ROADMAP.md Queue 1 item 10)")
+    _check_dataset(args)
+    from rovr_torch import infer
+
+    summary = infer.run(cfg, restore_from=args.restore_from, num_clips=args.num_clips,
+                        out_dir=args.out, device=args.device)
+    for k, v in summary.items():
+        print(f"{k}: {v}")
+    return 0
+
+
+COMMANDS = {"rl": cmd_rl, "eval": cmd_eval, "reconstruct": cmd_reconstruct}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m rovr_torch {" + ",".join(COMMANDS) + "} [flags]")
+        print("not ported yet: " + ", ".join(f"{c} ({w})" for c, w in NOT_PORTED.items()))
+        print(__doc__)
+        return 0
+    cmd = argv[0]
+    if cmd in NOT_PORTED:
+        print(f"{cmd} is not in the port yet ({NOT_PORTED[cmd]}); "
+              f"`python -m rovr_tpu {cmd}` runs it on JAX")
+        return 2
+    if cmd not in COMMANDS:
+        print(f"unknown command: {cmd}; choose from {list(COMMANDS)}")
+        return 2
+    return COMMANDS[cmd](argv[1:])

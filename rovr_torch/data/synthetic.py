@@ -73,3 +73,19 @@ def synthetic_batch(
         )
     f = np.float32(1.0 / 255.0)
     return corrupted * f, clip * f, masks.astype(np.float32)
+
+
+def synthetic_clips(
+    seed: int,
+    index: int,
+    batch: int,
+    num_frames: int = 20,
+    height: int = 256,
+    width: int = 256,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batch `index` of the clip stream of `seed`: (corrupted, original,
+    masks) float32 (B, S, H, W, 3), clip j drawn by
+    `synthetic_batch(seed + index * batch + j)`."""
+    clips = [synthetic_batch(seed + index * batch + j, num_frames, height, width)
+             for j in range(batch)]
+    return tuple(np.stack([c[k] for c in clips]) for k in range(3))

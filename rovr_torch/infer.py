@@ -9,8 +9,8 @@ elimination does to the JAX serving graph, so the corrupted clip stands in
 for both inputs. Frames are written as out/<clip>/<frame>.png.
 
 Not ported here: the mesh (data-parallel) serving path, the tunnel-only
-chunked device fetch, checkpoint restore, and the on-device synthetic
-source; `run` draws its default clips from the port's host generator.
+chunked device fetch and the on-device synthetic source; `run` draws its
+default clips from the port's host generator.
 """
 
 from __future__ import annotations
@@ -79,22 +79,31 @@ def write_frames(recon: np.ndarray, out_dir: str, clip_offset: int = 0) -> int:
 
 def run(
     cfg: Optional[Config] = None,
+    restore_from: Optional[str] = None,
     dataset=None,
     num_clips: int = 4,
     out_dir: str = "reconstructed",
     device=None,
 ) -> dict:
-    """Serve end to end: random init from cfg.run.seed, reconstruct
-    `num_clips` clips in batches of cfg.rl.batch_size, write their frames.
+    """Serve end to end: restore a trained RL state from the checkpoints
+    directory `restore_from` (random init from cfg.run.seed when it is None
+    or holds no step), reconstruct `num_clips` clips in batches of
+    cfg.rl.batch_size, write their frames.
 
     `dataset`: indexable items whose [0] is a (>=S, H, W, 3) clip; None
     draws synthetic clips (rovr_torch.data.synthetic). Runs on CUDA unless
     `device="cpu"`."""
     from rovr_torch.data import synthetic
+    from rovr_torch.utils.checkpoint import CheckpointManager
 
     cfg = cfg or Config()
     mods = rl.make_modules(cfg, device=device)
     state = rl.init_state(cfg, mods, cfg.run.seed)
+    restored = False
+    if restore_from:
+        got = CheckpointManager(restore_from).restore(template=state)
+        if got is not None:
+            state, restored = got, True
     b = cfg.rl.batch_size
     s = cfg.rl.vid_length
     h, w = cfg.data.frame_size
@@ -105,8 +114,7 @@ def run(
                 yield np.stack([np.asarray(dataset[(i + j) % len(dataset)][0][:s])
                                 for j in range(b)])
             else:  # uint8, the deployment frame format
-                f = np.stack([synthetic.synthetic_batch(cfg.run.seed + i + j, s, h, w)[0]
-                              for j in range(b)])
+                f = synthetic.synthetic_clips(cfg.run.seed, i // b, b, s, h, w)[0]
                 yield np.clip(f * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
     written = clips = 0
@@ -119,5 +127,6 @@ def run(
         "clips": clips,
         "frames_written": written,
         "out_dir": out_dir,
+        "restored": restored,
         "device": str(next(mods.local_net.parameters()).device),
     }

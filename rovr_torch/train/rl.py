@@ -1,12 +1,13 @@
-"""The ROVR episode and RL train step, PyTorch port of
+"""The ROVR episode, the RL train step and its loop, PyTorch port of
 rovr_tpu/train/rl.py: the module zoo, its state, the episode init, the
-rollout, PPO with Adam, and `train_step`.
+rollout, PPO with Adam, `train_step`, and `run`/`run_resilient` with
+checkpoints and metrics.
 
 The port covers both context policies (the canvas PolicyNet2 and the
-attention policy of config 5) with sequential targets
-(`use_policy1=False`), no RAFT spatio signal and no sequential baseline;
-`rollout` raises on those options. The `Episode/exposure` diagnostic (the
-`masks` argument of the JAX train step) is not ported.
+attention policy of config 5) with sequential targets, the sequential
+(vid2vid) baseline, the RAFT spatio signal (`log_spatio` /
+`use_spatio_reward`) and the `Episode/exposure` diagnostic. The pi1 path
+(`use_policy1`) is not ported; `rollout` raises on it.
 
 State and modules are split as in the JAX package: `ROVRModules` holds the
 nn.Modules, `ROVRState` their parameters as state dicts (port layout, f32)
@@ -15,10 +16,11 @@ state without copying it.
 
 The JAX rollout is one `lax.scan`; here it is a Python loop over
 `time_steps`. It syncs nothing with the host: target and context indices
-stay device tensors. The working video `recon` is a copy of the input in
-the compute dtype, written in place one target frame per step (the JAX
-carry is immutable and rewritten with a scatter); keeping it in the compute
-dtype, as the JAX package does, keeps the uint8 output's LSBs in step.
+stay device tensors. The working video `recon` (and the baseline's
+`exp_video`) is a copy of the input in the compute dtype, written in place
+one target frame per step (the JAX carry is immutable and rewritten with a
+scatter); keeping it in the compute dtype, as the JAX package does, keeps
+the uint8 output's LSBs in step.
 
 PPO's epochs are a Python loop of `torch.optim.Adam` steps (optax.adam's
 defaults). `ppo_update` returns a new state: the actor's and critic's
@@ -28,8 +30,10 @@ state is left as it was.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,8 +43,10 @@ from rovr_torch.models.layers import flax_init_state
 from rovr_torch.models.local_net import LocalNetUNet
 from rovr_torch.models.policy_attention import AttentionContextPolicy
 from rovr_torch.models.policy_net_2 import PolicyNet2
+from rovr_torch.models.raft import RAFTSmall, pairwise_flows, total_flow_magnitude
 from rovr_torch.models.vgg_lpips import LPIPS
 from rovr_torch.models.video_processor import VideoProcessor, resize_bilinear
+from rovr_torch.ops.metrics import context_exposure, spatio_reward
 from rovr_torch.ops.ppo import critic_loss, ppo_clip_actor_loss
 from rovr_torch.ops.rewards import normalized_advantage, rewards_to_go
 
@@ -53,13 +59,17 @@ class ROVRModules(NamedTuple):
     critic2: Policy
     local_net: LocalNetUNet
     lpips: LPIPS
+    # RAFT for the train-time spatio signal; built only when cfg.rl.log_spatio
+    # or use_spatio_reward asks for it
+    raft: Optional[RAFTSmall] = None
 
 
 class ROVRState(NamedTuple):
     """Parameters of each module as a state dict (name -> tensor), the
     count of PPO updates, and the actor's and critic's Adam states
     ({"step": int, "exp_avg": {name: tensor}, "exp_avg_sq": {name: tensor}},
-    optax.adam's (count, mu, nu))."""
+    optax.adam's (count, mu, nu)). `raft_params` is None unless the
+    spatio signal is on (cfg.rl.log_spatio / use_spatio_reward)."""
 
     vp_params: Dict[str, torch.Tensor]
     actor2_params: Dict[str, torch.Tensor]
@@ -69,6 +79,7 @@ class ROVRState(NamedTuple):
     step: int
     actor2_opt: dict
     critic2_opt: dict
+    raft_params: Optional[Dict[str, torch.Tensor]] = None
 
 
 class Trajectory(NamedTuple):
@@ -85,6 +96,8 @@ class Trajectory(NamedTuple):
 class RolloutOut(NamedTuple):
     traj: Trajectory
     reconstructed: torch.Tensor   # (B, S, H, W, 3) in the input's dtype
+    experimental: Optional[torch.Tensor]  # the sequential baseline's video, as
+                                          # `reconstructed`; None when it is off
     metrics: Dict[str, torch.Tensor]
 
 
@@ -97,7 +110,7 @@ class EpisodeInit(NamedTuple):
 
 _MODULE_STATE = {
     "vp": "vp_params", "actor2": "actor2_params", "critic2": "critic2_params",
-    "local_net": "local_net_params", "lpips": "lpips_params",
+    "local_net": "local_net_params", "lpips": "lpips_params", "raft": "raft_params",
 }
 
 
@@ -138,10 +151,25 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
         critic2=pol(**kw, is_critic=True),
         local_net=LocalNetUNet(channels=m.local_net_channels, dtype=dt),
         lpips=LPIPS(dtype=dt, **lp),
+        raft=_maybe_raft(cfg, dt),
     )
     for mod in mods:
-        mod.to(dev).requires_grad_(False)
+        if mod is not None:
+            mod.to(dev).requires_grad_(False)
     return mods
+
+
+def _maybe_raft(cfg: Config, dt: torch.dtype) -> Optional[RAFTSmall]:
+    if not (cfg.rl.use_spatio_reward or cfg.rl.log_spatio):
+        return None
+    return RAFTSmall(dtype=dt)
+
+
+def resolved_flow_size(cfg: Config) -> int:
+    """The RAFT input size of the spatio path: cfg.rl.spatio_flow_size
+    clamped to the smaller frame dimension (upsampling frames past their
+    size adds no flow information and costs RAFT time)."""
+    return min(cfg.rl.spatio_flow_size, *cfg.data.frame_size)
 
 
 def adam_init(params: Dict[str, torch.Tensor]) -> dict:
@@ -151,19 +179,66 @@ def adam_init(params: Dict[str, torch.Tensor]) -> dict:
             "exp_avg_sq": {k: torch.zeros_like(v) for k, v in params.items()}}
 
 
-def init_state(cfg: Config, mods: ROVRModules, seed: int) -> ROVRState:
+def init_state(cfg: Config, mods: ROVRModules, seed: int,
+               local_net_params: Optional[Dict[str, torch.Tensor]] = None,
+               vp_params: Optional[Dict[str, torch.Tensor]] = None,
+               actor2_params: Optional[Dict[str, torch.Tensor]] = None,
+               lpips_params: Optional[Dict[str, torch.Tensor]] = None,
+               critic2_params: Optional[Dict[str, torch.Tensor]] = None,
+               vp_backbone_params: Optional[Dict[str, torch.Tensor]] = None,
+               raft_params: Optional[Dict[str, torch.Tensor]] = None) -> ROVRState:
     """Fresh parameters from `seed`, drawn as the JAX package's flax
     initializers draw them (lecun-normal kernels, zero biases, LPIPS lins
     U(0, 0.1), N(0, 0.02) attention embeddings), on the modules' device,
-    and fresh Adam states. torch's draws differ from JAX's."""
+    and fresh Adam states. torch's draws differ from JAX's.
+
+    Pretrained or warm-started parameters plug in by argument, each a
+    state dict in the port's layout (`utils.convert`). `vp_backbone_params`
+    replaces only the VideoProcessor's backbone. A given module's draws are
+    still made, so the others' do not depend on what was given; RAFT draws
+    from a stream of its own (seed + 99), so turning the spatio signal on
+    changes no other module's parameters."""
     gen = torch.Generator().manual_seed(seed)
-    params = {
-        _MODULE_STATE[name]: flax_init_state(mod, gen)
-        for name, mod in zip(ROVRModules._fields, mods)
-    }
+    given = {"local_net_params": local_net_params, "vp_params": vp_params,
+             "actor2_params": actor2_params, "lpips_params": lpips_params,
+             "critic2_params": critic2_params}
+    params = {}
+    for name, mod in zip(ROVRModules._fields, mods):
+        if name == "raft":
+            continue
+        field = _MODULE_STATE[name]
+        fresh = flax_init_state(mod, gen)
+        params[field] = _given(field, given[field], fresh)
+    if vp_backbone_params is not None:
+        vp = params["vp_params"]
+        bb = _given("vp_backbone_params",
+                    {f"backbone.{k}": v for k, v in vp_backbone_params.items()},
+                    {k: v for k, v in vp.items() if k.startswith("backbone.")})
+        params["vp_params"] = {**vp, **bb}
+    if mods.raft is not None:
+        fresh = flax_init_state(mods.raft, torch.Generator().manual_seed(seed + 99))
+        params["raft_params"] = _given("raft_params", raft_params, fresh)
+    elif raft_params is not None:
+        raise ValueError("raft_params given but the spatio signal is off "
+                         "(cfg.rl.log_spatio / use_spatio_reward)")
     return ROVRState(**params, step=0,
                      actor2_opt=adam_init(params["actor2_params"]),
                      critic2_opt=adam_init(params["critic2_params"]))
+
+
+def _given(field: str, given: Optional[Dict[str, torch.Tensor]],
+           fresh: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`given` on `fresh`'s device, checked against its keys and shapes; or
+    `fresh` when nothing was given."""
+    if given is None:
+        return fresh
+    want = {k: tuple(v.shape) for k, v in fresh.items()}
+    got = {k: tuple(v.shape) for k, v in given.items()}
+    if want != got:
+        bad = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+        raise ValueError(f"{field} do not match the module: {bad[:8]}")
+    return {k: torch.as_tensor(v, dtype=torch.float32).to(fresh[k].device)
+            for k, v in given.items()}
 
 
 def _tree_to(tree, device):
@@ -180,23 +255,19 @@ def bind(mods: ROVRModules, state: ROVRState) -> None:
     """Make each module use the state's tensors (no copy when they are on
     the module's device already)."""
     for name, mod in zip(ROVRModules._fields, mods):
-        dev = next(mod.parameters()).device
         params = getattr(state, _MODULE_STATE[name])
+        if mod is None or params is None:
+            continue
+        dev = next(mod.parameters()).device
         mod.load_state_dict({k: v.to(dev) for k, v in params.items()},
                             strict=True, assign=True)
         mod.requires_grad_(False)
 
 
 def _check_supported(cfg: Config) -> None:
-    rl = cfg.rl
-    unported = {
-        "use_policy1": rl.use_policy1,
-        "use_spatio_reward / log_spatio": rl.use_spatio_reward or rl.log_spatio,
-        "sequential_baseline": rl.sequential_baseline,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not in the port yet: {', '.join(bad)}")
+    if cfg.rl.use_policy1 or cfg.rl.ppo_policy1:
+        raise NotImplementedError(
+            "not in the port yet: use_policy1 / ppo_policy1 (ROADMAP.md Queue 1 item 5)")
 
 
 def _write_frame(video: torch.Tensor, idx: torch.Tensor, frame: torch.Tensor) -> None:
@@ -207,6 +278,26 @@ def _write_frame(video: torch.Tensor, idx: torch.Tensor, frame: torch.Tensor) ->
 def _gather_frames(video: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, K, H, W, 3) frames of (B, S, H, W, 3) at per-sample indices (B, K)."""
     return video[torch.arange(video.shape[0], device=video.device)[:, None], idx]
+
+
+_LPIPS_CHUNK = 64  # frames per LPIPS call in per_frame_lpips
+
+
+def per_frame_lpips(mods: ROVRModules, lpips_params: Dict[str, torch.Tensor],
+                    video: torch.Tensor, org_video: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, W, 3) x2 -> (B, S) LPIPS table, `_LPIPS_CHUNK` frames per
+    call (each frame's distance is its own, so the chunks change only the
+    peak memory)."""
+    b, s = video.shape[:2]
+    dev = next(mods.lpips.parameters()).device
+    mods.lpips.load_state_dict({k: v.to(dev) for k, v in lpips_params.items()},
+                               strict=True, assign=True)
+    mods.lpips.requires_grad_(False)
+    flat = video.reshape((b * s,) + tuple(video.shape[2:]))
+    flat_org = org_video.reshape((b * s,) + tuple(org_video.shape[2:]))
+    d = [mods.lpips(flat[i:i + _LPIPS_CHUNK], flat_org[i:i + _LPIPS_CHUNK])
+         for i in range(0, b * s, _LPIPS_CHUNK)]
+    return torch.cat(d).reshape(b, s)
 
 
 def episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
@@ -265,15 +356,26 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             video: torch.Tensor, org_video: torch.Tensor,
             generator: Optional[torch.Generator] = None,
             rewards: bool = True,
-            gumbel: Optional[torch.Tensor] = None) -> RolloutOut:
+            gumbel: Optional[torch.Tensor] = None,
+            init: Optional[EpisodeInit] = None) -> RolloutOut:
     """The episode (ROVR.forward), gradient-free.
 
     video/org_video: (B, S, H, W, 3) in [0,1]. When cfg.rl.greedy is off the
     Gumbel noise is `gumbel` (T, B, S), or is drawn from `generator`
     (default: seeded from cfg.run.seed). `rewards=False` skips the LPIPS
-    reward path in the init and in every step, which is what XLA's
-    dead-code elimination does to the JAX serving graph; the trajectory
-    then has no rewards-to-go and `metrics` is empty.
+    reward path in the init and in every step, and the spatio signal, which
+    is what XLA's dead-code elimination does to a JAX graph that drops
+    them; the trajectory then has no rewards-to-go and `metrics` is empty.
+    `init`: this batch's `episode_init`, computed by the caller (with the
+    same `rewards`).
+
+    cfg.rl.sequential_baseline also reconstructs every target from the
+    contexts (t-2, t-1) mod S, in that stack order, gathered from the
+    corrupted video (from its own reconstruction with recon_context), into
+    `experimental`; it never feeds the rewards. cfg.rl.log_spatio adds the
+    RAFT flow recovery of the reconstruction, `Episode/spatio`;
+    use_spatio_reward also adds it to the last step's reward before the
+    rewards-to-go.
     """
     _check_supported(cfg)
     rl = cfg.rl
@@ -284,12 +386,16 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     if not rl.greedy and gumbel is None and generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
 
-    init = episode_init(state, mods, cfg, video, org_video, rewards)  # binds
+    if init is None:
+        init = episode_init(state, mods, cfg, video, org_video, rewards)  # binds
+    else:
+        bind(mods, state)
     cvs, fts = init.canvas, init.feats
     cl = init.curr_loss.clone() if rewards else None
 
     video_cd = video.to(mods.local_net.dtype)
     recon = video_cd.clone()
+    exp_video = video_cd.clone() if rl.sequential_baseline else None
     ar = torch.arange(b, device=dev)
     ys = {k: [] for k in ("obs", "tgt", "acs", "logp", "marginal", "lpips", "mse")}
     for t in range(rl.time_steps):
@@ -301,6 +407,12 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
 
         frame_src = recon if rl.recon_context else video_cd
         y_hat = mods.local_net(frame_src[ar, tgt], _gather_frames(frame_src, acs))
+
+        if rl.sequential_baseline:
+            seq_idx = torch.stack([(tgt - 2) % s, (tgt - 1) % s], dim=1)
+            exp_src = exp_video if rl.recon_context else video_cd
+            exp_hat = mods.local_net(exp_src[ar, tgt], _gather_frames(exp_src, seq_idx))
+            _write_frame(exp_video, tgt, exp_hat.to(exp_video.dtype))
 
         if rewards:
             org_tgt = org_video[ar, tgt]
@@ -324,10 +436,16 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
         ys["acs"].append(acs)
         ys["logp"].append(logp)
 
+    recon = recon.to(video.dtype)
     target_idx = torch.stack(ys["tgt"])
     rtgs, metrics = None, {}
     if rewards:
         marginal = torch.stack(ys["marginal"])  # (T, B)
+        spatio = None
+        if rl.use_spatio_reward or rl.log_spatio:
+            spatio = _spatio(state, mods, cfg, recon, org_video, video)  # (B,)
+            if rl.use_spatio_reward:
+                marginal[-1] += spatio
         rtgs = rewards_to_go(marginal, rl.gamma)
         # distinct frames reconstructed per episode / steps
         distinct = F.one_hot(target_idx, s).any(0).sum(1)
@@ -338,12 +456,30 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             "Episode/return": marginal.sum(0).mean(),
             "Episode/coverage": (distinct / rl.time_steps).mean(),
         }
+        if spatio is not None:
+            metrics["Episode/spatio"] = spatio.mean()
     traj = Trajectory(
         obs=tuple(torch.stack(x) for x in zip(*ys["obs"])),
         target_idx=target_idx, actions=torch.stack(ys["acs"]),
         logprobs=torch.stack(ys["logp"]), rtgs=rtgs,
     )
-    return RolloutOut(traj, recon.to(video.dtype), metrics)
+    experimental = None if exp_video is None else exp_video.to(video.dtype)
+    return RolloutOut(traj, recon, experimental, metrics)
+
+
+def _spatio(state: ROVRState, mods: ROVRModules, cfg: Config, recon: torch.Tensor,
+            org_video: torch.Tensor, video: torch.Tensor) -> torch.Tensor:
+    """The spatio signal (B,): RAFT flow recovery of the reconstruction
+    toward the original, relative to the corrupted clip, times spatio_scale."""
+    if mods.raft is None or state.raft_params is None:
+        raise ValueError("cfg.rl.use_spatio_reward/log_spatio need make_modules and "
+                         "init_state built with the same cfg (mods.raft, raft_params)")
+    size = resolved_flow_size(cfg)
+
+    def phi(v):
+        return total_flow_magnitude(pairwise_flows(mods.raft, v, size))[0]
+
+    return spatio_reward(phi(recon), phi(org_video), phi(video), cfg.rl.spatio_scale)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -453,14 +589,18 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
 def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
                video: torch.Tensor, org_video: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               masks: Optional[torch.Tensor] = None):
     """One RL step: rollout with rewards, then PPO (ROVR.train). Returns
     (state, metrics, reconstructed).
 
     `video`/`org_video` (B, S, H, W, 3) are uint8, divided by 255 on the
     device, or float in [0, 1]. The Gumbel noise of the rollout and of PPO
     comes from `generator` (default: seeded from cfg.run.seed), or is given
-    as `gumbel` = (rollout noise (T, B, S), PPO noise (n_updates, B*T, S))."""
+    as `gumbel` = (rollout noise (T, B, S), PPO noise (n_updates, B*T, S)).
+    `masks` (B, S, H, W, C), 1 where the frame kept its content, adds
+    `Episode/exposure`: the share of the targets' hole pixels that a chosen
+    context frame exposes."""
     dev = next(mods.local_net.parameters()).device
     video, org_video = (torch.as_tensor(x).to(dev) for x in (video, org_video))
     if video.dtype == torch.uint8:
@@ -474,4 +614,144 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
     state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo)
     metrics = dict(out.metrics)
     metrics.update(ppo_metrics)
+    if masks is not None:
+        hole = 1.0 - torch.as_tensor(masks).to(dev)[..., :1].float()
+        metrics["Episode/exposure"] = context_exposure(
+            hole, out.traj.target_idx, out.traj.actions)
     return state, metrics, out.reconstructed
+
+
+class HostSyntheticSource:
+    """Synthetic clips made on the host (`data.synthetic.synthetic_clips`,
+    seeded by cfg.run.seed): `next(i)` is batch i, (corrupted, original,
+    masks) float32 (B, S, H, W, 3) numpy arrays. It stands in for the JAX
+    package's on-device source, whose textured clips (`data_texture` != 0)
+    the port does not have yet (ROADMAP.md Queue 1 item 6)."""
+
+    def __init__(self, cfg: Config, batch: int, data_texture: float = 0.0):
+        if data_texture != 0.0:
+            raise NotImplementedError(
+                "textured synthetic clips (data_texture != 0) come with the on-device "
+                "source, not in the port yet (ROADMAP.md Queue 1 item 6)")
+        self.cfg, self.batch = cfg, batch
+
+    def next(self, i: int):
+        from rovr_torch.data import synthetic
+
+        h, w = self.cfg.data.frame_size
+        return synthetic.synthetic_clips(self.cfg.run.seed, i, self.batch,
+                                         self.cfg.rl.vid_length, h, w)
+
+
+def dataset_batch(dataset, start: int, b: int, s: int, fields: int = 2):
+    """Items start .. start+b-1 (wrapping) of an indexable dataset, the
+    first `fields` of each cut to s frames and stacked."""
+    items = [dataset[(start + j) % len(dataset)] for j in range(b)]
+    out = [np.stack([np.asarray(it[f])[:s] for it in items]) for f in range(fields)]
+    if out[0].shape[1] != s:
+        raise ValueError(f"dataset clips have {out[0].shape[1]} frames; "
+                         f"cfg.rl.vid_length={s} requires at least that many")
+    return out
+
+
+def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = None,
+        log_cb=None, init_params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        data_texture: float = 0.0, source=None, device=None) -> ROVRState:
+    """The RL training loop: `iterations` train steps (default
+    cfg.run.max_iterations), metrics and the corrupted | reconstructed |
+    original strip of frame 0 every cfg.run.log_every, a checkpoint per
+    cfg.run.checkpoint_every under <run_dir>/rovr_rl/<timestamp>/.
+    Returns the final state.
+
+    `init_params`: keyword arguments of `init_state` (port-layout state
+    dicts of pretrained or warm-started modules). cfg.run.restore_from: a
+    checkpoints directory whose newest step replaces the fresh state.
+    One torch.Generator seeded from cfg.run.seed draws every step's noise.
+
+    Data: `dataset`, indexable items whose [0], [1] are (>= S, H, W, 3)
+    corrupted and original clips (no masks, as in the JAX `run`); else
+    `source`, whose `next(i)` gives batch i as (corrupted, original, masks);
+    else the host synthetic source, whose masks add `Episode/exposure`
+    (`data_texture` != 0 raises: textured clips are not ported). Runs on
+    CUDA unless `device="cpu"`."""
+    from rovr_torch.utils.checkpoint import CheckpointManager, run_dir
+    from rovr_torch.utils.logging import MetricsWriter
+
+    cfg = cfg or Config()
+    _check_supported(cfg)
+    iterations = iterations if iterations is not None else cfg.run.max_iterations
+    b, s = cfg.rl.batch_size, cfg.rl.vid_length
+    if dataset is None and source is None:
+        source = HostSyntheticSource(cfg, b, data_texture)
+    mods = make_modules(cfg, device=device)
+    dev = next(mods.local_net.parameters()).device
+    state = init_state(cfg, mods, cfg.run.seed, **(init_params or {}))
+
+    path = run_dir(cfg.run.run_dir, "rovr_rl")
+    writer = MetricsWriter(path)
+    ckpt = CheckpointManager(os.path.join(path, "checkpoints"), every=cfg.run.checkpoint_every)
+    if cfg.run.restore_from:
+        restored = CheckpointManager(cfg.run.restore_from).restore(template=state)
+        if restored is not None:
+            state = restored
+    gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
+
+    def batches():
+        for i in range(iterations):
+            if dataset is not None:
+                yield (*dataset_batch(dataset, i * b, b, s), None)
+            else:
+                yield source.next(i)
+
+    try:
+        for i, (video, org, masks) in enumerate(batches()):
+            state, metrics, recon = train_step(state, mods, cfg, video, org,
+                                               generator=gen, masks=masks)
+            if i % cfg.run.log_every == 0:
+                writer.scalars({k: float(v) for k, v in metrics.items()}, i)
+                v0, o0 = (np.asarray(torch.as_tensor(x[0, 0]).cpu()) for x in (video, org))
+                if v0.dtype == np.uint8:
+                    v0 = v0.astype(np.float32) / 255.0
+                    o0 = o0.astype(np.float32) / 255.0
+                r0 = recon[0, 0].float().cpu().numpy()
+                writer.image("Episode/corrupted_recon_original",
+                             np.concatenate([v0, r0, o0], axis=1).clip(0.0, 1.0), i)
+                if log_cb:
+                    log_cb(i, metrics)
+            ckpt.save(i, state)
+        ckpt.wait()
+    finally:
+        ckpt.close()
+        writer.close()
+    return state
+
+
+def run_resilient(cfg: Optional[Config] = None, dataset=None,
+                  iterations: Optional[int] = None, log_cb=None,
+                  max_restarts: int = 3, source=None, device=None) -> ROVRState:
+    """Crash-resuming `run`: on any exception but KeyboardInterrupt, `run`
+    again from the newest checkpoint under cfg.run.run_dir (fresh when there
+    is none), up to `max_restarts` times. Completed steps persist in the
+    restored state's step count."""
+    import dataclasses
+    import traceback
+
+    from rovr_torch.utils.checkpoint import latest_checkpoint_dir
+
+    cfg = cfg or Config()
+    for attempt in range(max_restarts + 1):
+        try:
+            return run(cfg, dataset=dataset, iterations=iterations, log_cb=log_cb,
+                       source=source, device=device)
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            if attempt == max_restarts:
+                raise
+            traceback.print_exc()
+            resume = latest_checkpoint_dir(cfg.run.run_dir, "rovr_rl")
+            print(f"[rovr_torch.rl] attempt {attempt + 1} crashed; "
+                  + (f"resuming from {resume}" if resume
+                     else "restarting fresh (no checkpoint found)"))
+            cfg = cfg.replace(run=dataclasses.replace(cfg.run, restore_from=resume))
+    raise AssertionError("unreachable")

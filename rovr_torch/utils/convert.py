@@ -20,6 +20,12 @@ by module. The port's modules keep the flax names, so the map is by rule:
 
 No row permutation is needed for PolicyNet2's first final_fc layer: the
 port flattens its conv trunk in the same NHWC order as the JAX package.
+
+RAFT-small's tree (`raft_params`, present only when the spatio signal is
+on) needs no rule of its own: its InstanceNorm `scale`/`bias` map as every
+norm's do, its block names (`layer1_0`, `conv_down`) are the port's module
+names, and the update cell's parameters sit once under `update`, not
+stacked per iteration (flax's nn.scan broadcasts them).
 """
 
 from __future__ import annotations
@@ -83,9 +89,10 @@ def _adam_from_jax(opt, device) -> Optional[dict]:
 
 def params_from_jax(jax_state: Any, device=None) -> ROVRState:
     """JAX ROVRState (or a mapping with its `*_params` fields) -> the port's
-    ROVRState on `device` (default: the CPU): every module's parameters,
-    the PPO step count and, where the JAX state has them, the actor's and
-    critic's Adam states (else fresh ones)."""
+    ROVRState on `device` (default: the CPU): every module's parameters
+    (`raft_params` None where the JAX state has none), the PPO step count
+    and, where the JAX state has them, the actor's and critic's Adam states
+    (else fresh ones)."""
     def get(field, default=None):
         if isinstance(jax_state, Mapping):
             return jax_state.get(field, default)
@@ -93,7 +100,8 @@ def params_from_jax(jax_state: Any, device=None) -> ROVRState:
 
     dev = device or "cpu"
     params = {
-        f: {k: v.to(dev) for k, v in module_params_from_jax(get(f)).items()}
+        f: None if get(f) is None else
+        {k: v.to(dev) for k, v in module_params_from_jax(get(f)).items()}
         for f in ROVRState._fields if f.endswith("_params")
     }
     opts = {}

@@ -1,0 +1,127 @@
+"""The port's command line (rovr_torch/cli.py, `python -m rovr_torch`).
+
+The same argv must build the same config as `rovr_tpu.cli` (compared as
+`dataclasses.asdict`, with the JAX entry points stubbed out to catch it); the
+unported flags and subcommands must refuse; and `rl` then `reconstruct
+--restore_from` run end to end on the CPU, on a tiny config put in place of
+`Config()`.
+"""
+
+import dataclasses
+import glob
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from __graft_entry__ import _tiny_config
+from conftest import tiny_model_overrides
+from rovr_tpu import cli as jcli
+from rovr_torch import cli as tcli
+from rovr_torch.config import from_dict
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Small shapes: more intra-op threads only contend with the other test
+    workers of the run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+ARGVS = {
+    "rl": [[], ["--vid_length", "12", "--time_steps", "8", "--n_updates_per_ppo", "3",
+                "--batch_size", "4", "--context_policy", "attention",
+                "--sequential_baseline", "--iterations", "7", "--run_dir", "r",
+                "--seed", "5", "--root_folder", "no_such_dir", "--debug_short_dataset"]],
+    "eval": [[], ["--num_videos", "8", "--vid_length", "6", "--flow_size", "64",
+                  "--restore_from", "ck", "--force", "--seed", "2"]],
+    "reconstruct": [[], ["--num_clips", "3", "--vid_length", "9", "--batch_size", "3",
+                         "--context_policy", "attention", "--out", "o", "--data_parallel",
+                         "1", "--restore_from", "ck"]],
+}
+JAX_ENTRY = {"rl": ("rovr_tpu.train.rl", "run"),
+              "eval": ("rovr_tpu.train.evaluate", "run"),
+              "reconstruct": ("rovr_tpu.infer", "run")}
+
+
+def _jax_cfg(monkeypatch, cmd, argv):
+    seen = []
+    mod, name = JAX_ENTRY[cmd]
+    monkeypatch.setattr(f"{mod}.{name}", lambda cfg, *a, **kw: seen.append(cfg) or {})
+    assert jcli.main([cmd] + argv) == 0
+    return seen[0]
+
+
+@pytest.mark.parametrize("cmd", sorted(ARGVS))
+def test_same_argv_builds_the_jax_config(monkeypatch, cmd):
+    build = {"rl": tcli.rl_config, "eval": tcli.eval_config,
+             "reconstruct": tcli.reconstruct_config}[cmd]
+    for argv in ARGVS[cmd]:
+        cfg_j = _jax_cfg(monkeypatch, cmd, argv)
+        cfg_t, args = build(argv + ["--device", "cpu"])
+        assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j), (cmd, argv)
+        assert args.device == "cpu"
+
+
+def test_unported_flags_and_commands_refuse(tmp_path, capsys):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tcli.main(["rl", "--use_policy1"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tcli.main(["rl", "--warm_start", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tcli.main(["eval", "--warm_start", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tcli.main(["rl", "--root_folder", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tcli.main(["reconstruct", "--data_parallel", "2"])
+    for cmd in ("pretrain", "imitate", "pipeline", "convert"):
+        assert tcli.main([cmd]) == 2
+    assert tcli.main(["nonsense"]) == 2
+    assert tcli.main(["--help"]) == 0
+    out = capsys.readouterr().out
+    assert "not ported yet: pretrain" in out and "convert" in out
+
+
+def test_python_dash_m_help():
+    out = subprocess.run([sys.executable, "-m", "rovr_torch", "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert "usage: python -m rovr_torch {rl,eval,reconstruct}" in out.stdout
+
+
+def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """`rl` writes metrics and a checkpoint; `reconstruct --restore_from` it
+    writes frames and reports restored; `eval` withholds the weight-dependent
+    metrics without --force."""
+    c = _tiny_config(batch_size=2)
+    tiny = from_dict(dataclasses.asdict(c.replace(
+        model=dataclasses.replace(c.model, **tiny_model_overrides()))))
+    monkeypatch.setattr(tcli, "Config", lambda: tiny)
+    run_dir = tmp_path / "runs"
+    assert tcli.main(["rl", "--iterations", "1", "--batch_size", "2", "--vid_length", "5",
+                      "--time_steps", "4", "--n_updates_per_ppo", "1", "--run_dir",
+                      str(run_dir), "--device", "cpu"]) == 0
+    assert "[rl 0] Episode/lpips_loss=" in capsys.readouterr().out
+    (ck,) = glob.glob(str(run_dir / "rovr_rl" / "*" / "checkpoints"))
+    assert os.listdir(ck) == ["0"]
+    out_dir = tmp_path / "frames"
+    assert tcli.main(["reconstruct", "--restore_from", ck, "--num_clips", "2",
+                      "--vid_length", "5", "--out", str(out_dir), "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert "restored: True" in printed and "frames_written: 10" in printed
+    assert len(glob.glob(str(out_dir / "*" / "*.png"))) == 10
+    assert tcli.main(["eval", "--num_videos", "2", "--vid_length", "5", "--flow_size", "64",
+                      "--run_dir", str(run_dir), "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("Eval/psnr_agentic:") for line in lines)
+    assert not any(line.startswith(("Eval/flow_recovery", "Eval/lpips")) for line in lines)
+    assert any("4 weight-dependent metrics withheld" in line for line in lines)

@@ -31,7 +31,7 @@ def test_every_module_imports_without_jax_or_rovr_tpu():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20  # every module of the package was walked
+    assert int(count) >= 34  # every module of the package was walked, __main__ too
     assert bad == "[]", f"rovr_torch pulled in {bad}"
 
 
@@ -60,6 +60,24 @@ def test_entry_points_refuse_without_cuda(no_cuda):
         infer.run(Config(), num_clips=1)
 
 
+def test_training_and_eval_entry_points_refuse_without_cuda(no_cuda, tmp_path):
+    """rl.run, evaluate.run/run_ci and the CLI (no --device) refuse too."""
+    import dataclasses
+
+    from rovr_torch import cli
+    from rovr_torch.config import Config
+    from rovr_torch.train import evaluate, rl
+
+    c = Config()
+    cfg = c.replace(run=dataclasses.replace(c.run, run_dir=str(tmp_path)))
+    for call in (lambda: rl.run(cfg, iterations=1),
+                 lambda: evaluate.run(cfg, num_videos=1),
+                 lambda: evaluate.run_ci(cfg, num_videos=1),
+                 lambda: cli.main(["reconstruct", "--num_clips", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
     import dataclasses
 
@@ -71,7 +89,8 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
         c.model, backbone="tiny", lpips_stages=((8, 1),),
         local_net_channels=(8, 16, 32, 64), pn2_fc_dims=(16,)))
     mods = rl.make_modules(cfg, device="cpu")
-    assert all(p.device.type == "cpu" for m in mods for p in m.parameters())
+    assert all(p.device.type == "cpu" for m in mods if m is not None
+               for p in m.parameters())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
