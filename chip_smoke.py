@@ -7,24 +7,31 @@ Builds every hand-written kernel of the port from rovr_torch/csrc with nvcc
 (one process per source, all at once), holds each against its plain
 PyTorch version at the shapes its paths give it, then drives serving
 (`rovr_torch.infer.reconstruct_clips`) at the full width of `Config()` and
-of config 5, and the config-5 RL train step (`rovr_torch.train.rl.
-train_step`), and checks that each path really went through the kernels:
-every launch count is set to 0 just before a path is driven and read just
-after. Phases:
+of config 5, the config-5 RL train step (`rovr_torch.train.rl.
+train_step`) and driver, evaluation, UNet pretraining, the imitation warm
+start and the four-stage pipeline, and checks that each path really went
+through the kernels: every launch count is set to 0 just before a path is
+driven and read just after. Phases:
 
   1. device, card name and power limit; TF32 off for the comparisons;
   2. K1 (fused conv3x3) vs its plain version at the three serving shapes,
-     two ragged shapes (odd H/W, Cin = 72 past a 64-channel slice, one at
-     W = 32 under the 4 x 32 spatial tile) and relu=False; the backward
-     once; CUDA-event times of the kernel, the plain version and cuDNN (the
-     library yardstick, used nowhere in the port), and the profiler's
-     device time of the kernel and of cuDNN, beside the computed bound,
-     with each shape's share of the bound and its ratio to cuDNN under
-     both measures;
+     the pretrain step's (batch 24, 256^2), the pipeline's 160^2 ones
+     (40^2 and 20^2 maps at batch 24 and 4), two ragged shapes (odd H/W,
+     Cin = 72 past a 64-channel slice, one at W = 32 under the 4 x 32
+     spatial tile) and relu=False; CUDA-event times of the kernel, the plain
+     version and cuDNN (the library yardstick, used nowhere in the port),
+     and the profiler's device time of the kernel and of cuDNN, beside the
+     computed bound, with each shape's share of the bound and its ratio to
+     cuDNN under both measures; K1's backward (cuDNN's conv gradient in
+     bf16) vs autograd of the f32 plain version at the pretrain and 160^2
+     shapes and a ragged one (gx, gk, gb within 2e-2 * max|plain|), and at
+     the pretrain shapes its times (events and device time) beside cuDNN's
+     forward+backward and the plain-autograd backward it replaced;
   3. K2/K3/K4 (flash attention forward, dq, dk/dv) vs their plain twins at
      the rollout shape (8,4,256,64), the PPO shape (512,4,256,64),
      tests/test_attention.py's shapes (padded D, unaligned L, cross 128x200,
-     D 128) and 256 heads of L 130: out, lse, dq, dk, dv, and the mma.sync
+     D 128), 256 heads of L 130, and the pipeline's imitation (20,4,80,64)
+     and rollout (4,4,80,64) shapes: out, lse, dq, dk, dv, and the mma.sync
      kernels (by their test hooks) on the same inputs; the K2, K3 and K4
      kernels the profiler saw at each shape against `flash_fwd_route` and
      `flash_bwd_route`; at the rollout and PPO shapes CUDA-event times and
@@ -74,14 +81,37 @@ after. Phases:
      2 iterations (exactly 60 K1 per iteration, finite metrics, a
      checkpoint), then `python -m rovr_torch rl --iterations 1` and
      `python -m rovr_torch reconstruct --restore_from` its checkpoint as
-     subprocesses (exit 0, frames written, restored).
+     subprocesses (exit 0, frames written, restored);
+ 16. the on-device synthetic source (`data.device_synthetic.make_source`)
+     in both schemes at Config() size (batch 8 x 20 frames, 256^2, texture
+     1.0): shapes, the [0, 1] range, masked pixels zero, raster masks equal
+     to `raster_box_masks`, determinism; time per batch beside the host
+     source's;
+ 17. UNet pretraining at Config() (`pretrain_local.run`, batch 24, 256^2,
+     4 steps): exactly 3 K1 forward launches and 3 backward calls per step
+     plus 3 forward launches for the step-0 strip, finite metrics, the UNet
+     moved and LPIPS not, a checkpoint restored bit for bit; then timed
+     train steps, peak memory, and one step under torch.profiler (device
+     time by kernel, K1's share, the backward's cuDNN convs, the idle
+     share; fused_conv3x3_plain must not appear);
+ 18. the imitation warm start (`imitation.run`, 3 steps) at Config() (the
+     canvas PolicyNet2, the explicit source) and at the pipeline's
+     configuration (the attention policy, 160^2, the raster source): K2,
+     K3 and K4 once per encoder block per step with the attention policy
+     and no port kernel with the canvas one; finite loss, top2_acc and
+     exposure; π₂ and the VideoProcessor's heads moved, the backbone not;
+ 19. the pipeline (`pipeline.run(default_config(20, 4))`, 4 pretrain and 4
+     imitation steps, 2 RL iterations and 1 from a random π₂, 4 eval arms
+     of 4 clips, the CI eval with 2 draws): every stage's launch counts and
+     the record's keys as the JAX `run` writes them; then `python -m
+     rovr_torch pretrain`, `imitate` and `pipeline` as subprocesses.
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the rovr_torch package
 beside this file; without either it exits non-zero and prints no result.
 Writes the full record to chiprun_out/chip_smoke.json; the run directories
-of phases 12-15 go under chiprun_out/ too, their checkpoints deleted at the end.
+of phases 12-19 go under chiprun_out/ too, their checkpoints deleted at the end.
 """
 
 from __future__ import annotations
@@ -102,6 +132,19 @@ SERVING_SHAPES = {         # name: (B, H, W, Cin, Cout), batch 8 at 256^2
     "conv4": (8, 32, 32, 256, 512),
     "conv5": (8, 64, 64, 512, 256),
 }
+PRETRAIN_SHAPES = {        # conv3/4/5 of a pretrain step at Config(): batch 24, 256^2
+    "conv3": (24, 64, 64, 128, 256),
+    "conv4": (24, 32, 32, 256, 512),
+    "conv5": (24, 64, 64, 512, 256),
+}
+PIPELINE_SHAPES = {        # the pipeline's 160^2 frames: 40^2 and 20^2 maps, ragged
+    "p160_conv3": (24, 40, 40, 128, 256),   # under K1's 4 x 32 tile; batch 24 in
+    "p160_conv4": (24, 20, 20, 256, 512),   # pretrain, 4 in the rollout
+    "p160_conv5": (24, 40, 40, 512, 256),
+    "r160_conv3": (4, 40, 40, 128, 256),
+    "r160_conv4": (4, 20, 20, 256, 512),
+    "r160_conv5": (4, 40, 40, 512, 256),
+}
 RAGGED = (3, 37, 29, 72, 40)   # odd H/W, Cin and Cout off the 64/128 tiles
 RAGGED32 = (2, 30, 32, 72, 200)  # W = 32 (4 x 32 tile), H off TH, Cout off 256
 K1_TOL = 2e-2                  # max|kernel - plain| <= K1_TOL * max|plain|
@@ -116,6 +159,8 @@ ATTN_SHAPES = {                # name: (B, H, Lq, Lk, D)
     "D128": (1, 1, 128, 128, 128),
     "wide_L130": (64, 4, 130, 130, 64),  # K2's 128-row items, a warpgroup past Lq
     "L70_D20": (1, 2, 70, 70, 20),   # D % 8 != 0: the mma.sync forward, element-wise copies
+    "imitation": (20, 4, 80, 80, 64),   # pipeline imitation: S = 20 rows of 20 x 4 tokens
+    "rollout160": (4, 4, 80, 80, 64),   # the pipeline's RL rollout, batch 4
 }
 K2_KERNELS = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}  # by route
 BWD_KERNELS = {"dq": {"tma": "flash_dq_tma_kernel", "mma": "flash_dq_kernel"},     # K3
@@ -212,6 +257,8 @@ def phase_k1(torch, conv, F):
         return x, k, bias
 
     cases = [(n, s, True) for n, s in SERVING_SHAPES.items()]
+    cases += [(f"pretrain_{n}", s, True) for n, s in PRETRAIN_SHAPES.items()]
+    cases += [(n, s, True) for n, s in PIPELINE_SHAPES.items()]
     cases += [("ragged", RAGGED, True), ("ragged", RAGGED, False),
               ("ragged32", RAGGED32, True), ("ragged32", RAGGED32, False),
               ("conv4", SERVING_SHAPES["conv4"], False)]
@@ -261,17 +308,99 @@ def phase_k1(torch, conv, F):
             f"{dev_ms / lib_dev_ms:.3f}); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})")
 
-    # backward: the autograd.Function's gradient is the plain version's
-    x, k, bias = inputs(2, 9, 7, 16, 24)
-    xs, ks, bs = (t.clone().requires_grad_() for t in (x, k, bias))
-    (conv.fused_conv3x3(xs, ks, bs, True).float() ** 2).sum().backward()
-    xr, kr, br = (t.clone().requires_grad_() for t in (x, k, bias))
-    (conv.fused_conv3x3_plain(xr, kr, br, True).float() ** 2).sum().backward()
-    for a, r in ((xs.grad, xr.grad), (ks.grad, kr.grad), (bs.grad, br.grad)):
-        err = (a.float() - r.float()).abs().max().item()
-        if err > K1_TOL * r.float().abs().max().item():
-            raise AssertionError(f"K1 backward disagrees with the plain gradient: {err}")
-    log("K1 backward vs plain autograd: ok")
+    return rows, max_err
+
+
+def phase_k1_backward(torch, conv, F):
+    """K1's backward (cuDNN's conv gradient in bf16, `fused_conv3x3_backward`)
+    against its f32 plain twin on the same inputs (`fused_conv3x3_backward_
+    plain`: autograd of the f32 plain conv under the mask of the same saved
+    output) at the pretrain step's and the pipeline's shapes and a ragged
+    one; beside it, for the record only, its distance from the
+    plain-autograd backward (autograd through the f32 plain version with
+    the mask of its own f32 forward, whose pre-activations within ~1e-6 of
+    zero can take the other sign than K1's) and the number of such mask
+    flips. At the
+    pretrain shapes its CUDA-event and device times beside cuDNN's
+    forward+backward (the library yardstick) and the plain-autograd
+    backward the port ran before, and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, max_err = [], 0.0
+    cases = [(f"pretrain_{n}", s) for n, s in PRETRAIN_SHAPES.items()]
+    cases += [(n, s) for n, s in PIPELINE_SHAPES.items() if n.startswith("p160")]
+    cases += [("ragged", (2, 9, 7, 16, 24))]
+    for name, (b, h, w, cin, cout) in cases:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+             / math.sqrt(9 * cin)).bfloat16()
+        bias = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        g = torch.randn(b, h, w, cout, device="cuda", generator=gen).bfloat16()
+        y = conv.fused_conv3x3(x, k, bias, True)
+        calls = conv.fused_conv3x3.backward_calls
+        got = conv.fused_conv3x3_backward(x, k, y, g, True)
+        if conv.fused_conv3x3.backward_calls != calls + 1:
+            raise AssertionError("fused_conv3x3_backward did not count its call")
+
+        def old_backward():  # autograd through the f32 plain version
+            with torch.enable_grad():
+                xs, ks, bs = (t.detach().float().requires_grad_() for t in (x, k, bias))
+                return torch.autograd.grad(conv.fused_conv3x3_plain(xs, ks, bs, True),
+                                           (xs, ks, bs), g.float())
+
+        ref = conv.fused_conv3x3_backward_plain(x, k, y, g, True)
+        old = old_backward()
+        flips = ((y > 0) != (conv.fused_conv3x3_plain(x.float(), k.float(), bias, True) > 0))
+        torch.cuda.synchronize()
+        errs, old_rel = {}, {}
+        for gname, a, r, o in zip(("gx", "gk", "gb"), got, ref, old):
+            if a.dtype != (torch.float32 if gname == "gb" else torch.bfloat16):
+                raise AssertionError(f"K1 backward {gname} at {name}: dtype {a.dtype}")
+            err = (a.float() - r).abs().max().item()
+            limit = K1_TOL * r.abs().max().item()
+            errs[gname] = err
+            old_rel[gname] = (a.float() - o).abs().max().item() / o.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"K1 backward {gname} at {name}: max|cuDNN bf16 - "
+                                     f"plain f32| {err} > {limit}")
+        max_err = max(max_err, *errs.values())
+        n_flips = int(flips.sum().item())
+        log(f"K1 backward {name} {(b, h, w, cin, cout)}: max|bf16 - plain f32| gx "
+            f"{errs['gx']:.4g} gk {errs['gk']:.4g} gb {errs['gb']:.4g}: ok; against the "
+            f"plain-autograd backward (its own f32 mask, {n_flips} of {flips.numel()} signs "
+            f"flipped) "
+            + ", ".join(f"{kname} {v:.4f}" for kname, v in old_rel.items()) + " of max")
+        if not name.startswith("pretrain_"):
+            continue
+        x_cl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        w_cl = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) \
+            .requires_grad_()
+        b16 = bias.bfloat16().requires_grad_()
+        g_cl = g.permute(0, 3, 1, 2)
+
+        def bwd():
+            return conv.fused_conv3x3_backward(x, k, y, g, True)
+
+        def cudnn_fb():
+            out = F.relu(F.conv2d(x_cl, w_cl, b16, padding=1))
+            return torch.autograd.grad(out, (x_cl, w_cl, b16), g_cl)
+
+        ms, dev_ms = cuda_ms(bwd, 10), profiled_ms(torch, bwd, None, 10)
+        lib_ms, lib_dev_ms = cuda_ms(cudnn_fb, 10), profiled_ms(torch, cudnn_fb, None, 10)
+        old_ms = cuda_ms(old_backward, iters=3, warmup=1)
+        flops = 2 * 2.0 * b * h * w * 9 * cin * cout   # dgrad + wgrad
+        nbytes = (2.0 * 2 * b * h * w * cin + 2.0 * 2 * 9 * cin * cout     # x, gx; k, gk
+                  + 2.0 * 2 * b * h * w * cout + 4.0 * cout)              # y, g; gb
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        rows.append(dict(call=name, shape=[b, h, w, cin, cout], ms=ms, device_ms=dev_ms,
+                         cudnn_fwd_bwd_ms=lib_ms, cudnn_fwd_bwd_device_ms=lib_dev_ms,
+                         old_plain_autograd_ms=old_ms, bound_ms=bound_ms,
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         max_abs_err=errs, vs_old_rel=old_rel, mask_flips=n_flips))
+        log(f"K1 backward {name} times: events {ms:.4f} ms, device {dev_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_ms / max(dev_ms, 1e-9):.3f} of it in device time); "
+            f"cuDNN forward+backward events {lib_ms:.4f} device {lib_dev_ms:.4f}; the "
+            f"plain-autograd backward {old_ms:.3f} ms ({old_ms / ms:.1f}x)")
     return rows, max_err
 
 
@@ -660,6 +789,7 @@ def _counts(conv, attention):
 
 def _zero_counts(conv, attention):
     conv.fused_conv3x3.launches = 0
+    conv.fused_conv3x3.backward_calls = 0
     for fn in (attention.flash_attention_fwd, attention.flash_attention_dq,
                attention.flash_attention_dkv):
         fn.launches = 0
@@ -1096,11 +1226,7 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
         evaluate.eval_step(state, raft, mods, cfg, batch, FLOW_SIZE)
         torch.cuda.synchronize()
         step_wall_ms = (time.time() - t1) * 1e3
-    rows = sorted((dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and getattr(e, "self_device_time_total", 0) > 0), key=lambda r: -r["ms"])
-    busy_ms = sum(r["ms"] for r in rows)
+    rows, busy_ms = _profile_rows(torch, prof)
     org = batch[1].float() * (1.0 / 255.0)
     with torch.no_grad():
         phi_ms = profiled_ms(torch, lambda: total_flow_magnitude(
@@ -1147,6 +1273,19 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     return res
 
 
+def python_m(here, *args):
+    """`python -m rovr_torch <args>` in a subprocess from the checkout;
+    raises unless it exits 0. Returns (stdout, seconds)."""
+    t = time.time()
+    out = subprocess.run([sys.executable, "-m", "rovr_torch", *args], cwd=here,
+                         env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m rovr_torch {' '.join(args)}: rc "
+                             f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, time.time() - t
+
+
 def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
     """The command line: `rl` in this process at Config() widths, then
     `python -m rovr_torch rl` and `reconstruct --restore_from` as
@@ -1163,22 +1302,11 @@ def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
     recs, _ = _run_records(run_root, "rovr_rl")
     if checkpoint.latest_checkpoint_dir(run_root, "rovr_rl") is None:
         raise AssertionError("cli rl wrote no checkpoint")
-    env = dict(os.environ, PYTHONPATH=here)
     sub_root = os.path.join(run_root, "sub")
-
-    def python_m(*args):
-        t = time.time()
-        out = subprocess.run([sys.executable, "-m", "rovr_torch", *args], cwd=here, env=env,
-                             capture_output=True, text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"python -m rovr_torch {' '.join(args)}: rc "
-                                 f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-        return out.stdout, time.time() - t
-
-    _, rl_s = python_m("rl", "--iterations", "1", "--run_dir", sub_root)
+    _, rl_s = python_m(here, "rl", "--iterations", "1", "--run_dir", sub_root)
     ck = checkpoint.latest_checkpoint_dir(sub_root, "rovr_rl")
     frames = os.path.join(run_root, "frames")
-    printed, rec_s = python_m("reconstruct", "--restore_from", ck, "--out", frames)
+    printed, rec_s = python_m(here, "reconstruct", "--restore_from", ck, "--out", frames)
     n_png = len(glob.glob(os.path.join(frames, "*", "*.png")))
     if "restored: True" not in printed or n_png == 0:
         raise AssertionError(f"reconstruct: {printed}")
@@ -1191,6 +1319,354 @@ def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
     log(f"cli: rl in-process (Config(), batch 8, 2 iterations) {main_s:.2f} s, launches "
         f"{counts}; python -m rovr_torch rl {rl_s:.2f} s; reconstruct --restore_from "
         f"{rec_s:.2f} s, {n_png} frames, restored")
+    return res
+
+
+SOURCE_BATCHES = 3    # timed device-source batches per scheme
+PRETRAIN_STEPS = 4    # pretrain_local.run steps at Config()
+IMITATION_STEPS = 3   # imitation.run steps per configuration
+JAX_PIPELINE_KEYS = {  # the record rovr_tpu/train/pipeline.run writes (stages 1-4b, 3b)
+    "config", "pretrain", "imitation", "rl", "rl_from_random", "eval_trained",
+    "eval_warm_start_only", "eval_random_policy", "eval_ppo_from_random", "ppo_ablation",
+    "eval_ci", "ablation_ci", "wall_seconds",
+}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_source(torch, Config, device_synthetic, corruption, synthetic):
+    """The on-device synthetic source in both schemes at Config() size
+    (batch 8 x 20 frames, 256^2, texture 1.0): its contract and its time per
+    batch beside the host source's."""
+    import dataclasses
+
+    c = Config()
+    h, w = c.data.frame_size
+    b, s = 8, 20
+    shape = (b, s, h, w, 3)
+    res = {}
+    for scheme in ("explicit", "raster"):
+        cfg = c.replace(data=dataclasses.replace(c.data, synthetic_scheme=scheme))
+        src = device_synthetic.make_source(cfg, b, 0, 1.0, 1.5, device="cuda")
+        src.next(0)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(1, 1 + SOURCE_BATCHES):
+            t0 = time.time()
+            out = src.next(i)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        corrupted, original, masks, pos, neg = out
+        for name, x in (("corrupted", corrupted), ("original", original), ("masks", masks)):
+            if tuple(x.shape) != shape or x.dtype != torch.float32 or not x.is_cuda:
+                raise AssertionError(f"{scheme} source {name}: {x.shape} {x.dtype} {x.device}")
+            if not (x.min().item() >= 0.0 and x.max().item() <= 1.0):
+                raise AssertionError(f"{scheme} source {name} outside [0, 1]")
+        if not ((masks == 0) | (masks == 1)).all() or not (masks == 0).any():
+            raise AssertionError(f"{scheme} source masks are not a 0/1 corruption")
+        if not torch.equal(corrupted, original * masks) or corrupted[masks == 0].abs().max() != 0:
+            raise AssertionError(f"{scheme} source: masked pixels are not zero")
+        again = src.next(SOURCE_BATCHES)
+        if not (torch.equal(again[0], corrupted) and torch.equal(again[1], original)):
+            raise AssertionError(f"{scheme} source is not deterministic per (seed, i)")
+        if scheme == "raster":
+            want = corruption.raster_box_masks(2 * torch.arange(s, device="cuda"), h, w)
+            if pos is not None or not torch.equal(masks, want[None].expand(shape)):
+                raise AssertionError("raster source masks differ from raster_box_masks")
+        elif pos.shape != (b, s, 16, 2) or neg.shape != (b, s, 3, 2):
+            raise AssertionError(f"explicit source tables {pos.shape} {neg.shape}")
+        dev_ms = profiled_ms(torch, lambda: src.next(0), None, iters=1)
+        res[scheme] = dict(sec_per_batch=_median(times), sec_each=times, device_ms=dev_ms)
+        log(f"device source {scheme} (batch {b} x {s} frames, {h}^2, texture 1.0): "
+            f"{_median(times) * 1e3:.2f} ms per batch (host clock, median of {len(times)}), "
+            f"{dev_ms:.2f} ms of device time; contract ok")
+    t0 = time.time()
+    synthetic.synthetic_clips(0, 0, b, s, h, w)
+    res["host_sec_per_batch"] = time.time() - t0
+    log(f"host synthetic source, the same batch size untextured: "
+        f"{res['host_sec_per_batch']:.3f} s per batch")
+    return res
+
+
+def _profile_rows(torch, prof):
+    rows = sorted((dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and getattr(e, "self_device_time_total", 0) > 0), key=lambda r: -r["ms"])
+    return rows, sum(r["ms"] for r in rows)
+
+
+def phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint, out_dir):
+    """`pretrain_local.run` at Config() (UNet 64-512, VGG16 LPIPS, batch 24,
+    256^2, the host clips): exactly 3 K1 forward launches and 3 backward
+    calls per step plus 3 forward launches for the step-0 strip, finite
+    metrics, the UNet moved and LPIPS not, a checkpoint restored bit for
+    bit; then timed steps, peak memory, and one step under torch.profiler."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+
+    run_root = os.path.join(out_dir, "smoke_pretrain")
+    shutil.rmtree(run_root, ignore_errors=True)
+    c = Config()
+    cfg = c.replace(run=dataclasses.replace(c.run, run_dir=run_root, log_every=1),
+                    pretrain=dataclasses.replace(c.pretrain, checkpoint_every=1))
+    b = cfg.pretrain.batch_size
+    marks = []
+
+    def log_cb(i, metrics):   # after step i, before its strip and checkpoint
+        torch.cuda.synchronize()
+        marks.append((time.time(), _counts(conv, attention), conv.fused_conv3x3.backward_calls,
+                      _finite_metrics(metrics)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are pretrain_local.run's
+    t0 = time.time()
+    state = pretrain_local.run(cfg, steps=PRETRAIN_STEPS, log_cb=log_cb, device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    for i, (_, counts, bwd, _) in enumerate(marks):
+        want = {"K1": 3 * (i + 1) + (3 if i else 0), "K2": 0, "K3": 0, "K4": 0}
+        if counts != want or bwd != 3 * (i + 1):
+            raise AssertionError(f"pretrain step {i}: launches {counts}, backward calls {bwd}; "
+                                 f"expected {want} and {3 * (i + 1)}")
+    if len(marks) != PRETRAIN_STEPS or state.step != PRETRAIN_STEPS:
+        raise AssertionError(f"pretrain ran {len(marks)} logged steps, state.step {state.step}")
+    iter_s = [marks[0][0] - t0] + [marks[i][0] - marks[i - 1][0] for i in range(1, len(marks))]
+    ck = checkpoint.latest_checkpoint_dir(run_root, "local_net_pretrain")
+    restored = checkpoint.CheckpointManager(ck).restore(template=state)
+    if not _same_tree(restored, state):
+        raise AssertionError(f"pretrain checkpoint {ck} does not restore the state")
+    (path,) = glob.glob(os.path.join(run_root, "local_net_pretrain", "*"))
+    if not (glob.glob(os.path.join(path, "images", "*.png"))
+            or glob.glob(os.path.join(path, "events.out.tfevents*"))):
+        raise AssertionError("pretrain wrote no image strip")
+    _drop_checkpoints(run_root)
+
+    mods = pretrain_local.make_modules(cfg, device="cuda")
+    fresh = pretrain_local.init_state(cfg, mods, cfg.run.seed)
+    moved = _moved(state.params, fresh.params)
+    if not (moved > 0 and math.isfinite(moved)) or not all(
+            torch.equal(state.lpips_params[k], v) for k, v in fresh.lpips_params.items()):
+        raise AssertionError(f"pretrain: UNet moved {moved}; LPIPS must not move")
+
+    data = tuple(torch.as_tensor(x).cuda() for x in pretrain_local.host_clips(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    st, times = fresh, []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + 3):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        st, _ = pretrain_local.train_step(st, gen, mods, data, b)
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        pretrain_local.train_step(st, gen, mods, data, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t1) * 1e3
+    rows, busy_ms = _profile_rows(torch, prof)
+    names = {e.key for e in prof.key_averages()}
+    if "fused_conv3x3_plain" in names:
+        raise AssertionError("the pretrain step reached fused_conv3x3_plain on the card")
+    if "fused_conv3x3_backward" not in names:
+        raise AssertionError("the profiler saw no fused_conv3x3_backward range")
+    bwd_range = [e for e in prof.key_averages() if e.key == "fused_conv3x3_backward"][0]
+    bwd_dev_ms = getattr(bwd_range, "device_time_total", 0) / 1e3
+    k1_ms = sum(r["ms"] for r in rows if "conv3x3_kernel" in r["kernel"])
+    grad_convs = [r for r in rows if "dgrad" in r["kernel"] or "wgrad" in r["kernel"]]
+    res = dict(batch=b, steps=PRETRAIN_STEPS, total_s=total_s, iter_s=iter_s,
+               launches_per_step={"K1": 3, "K1_backward": 3}, strip_launches={"K1": 3},
+               metrics=[m[3] for m in marks], peak_mem_gb_run=peak_run, param_moved=moved,
+               sec_per_step_each=times[1:], sec_per_step=_median(times[1:]),
+               warmup_s=times[0], peak_mem_gb=peak, wall_ms=wall_ms, device_ms=busy_ms,
+               idle_share=(1 - busy_ms / wall_ms) if busy_ms else None, k1_ms=k1_ms,
+               k1_share=(k1_ms / busy_ms) if busy_ms else None,
+               k1_backward_range_device_ms=bwd_dev_ms, k1_backward_range_calls=bwd_range.count,
+               cudnn_grad_conv_ms=sum(r["ms"] for r in grad_convs),
+               cudnn_grad_conv_launches=sum(r["count"] for r in grad_convs), top=rows[:25])
+    log(f"pretrain at Config() (batch {b}): {PRETRAIN_STEPS} steps of pretrain_local.run in "
+        f"{total_s:.2f} s (per step " + ", ".join(f"{x:.3f}" for x in iter_s)
+        + f" s; the first includes set-up), K1 3 forward + 3 backward per step and 3 for the "
+        f"strip, checkpoint restored bit for bit, LPIPS unchanged, peak {peak_run:.2f} GB; "
+        f"train_step {res['sec_per_step']:.4f} s/step (median of 3), peak {peak:.2f} GB")
+    log(f"profile of one pretrain step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle share {res['idle_share'] or 0:.3f}); K1 forward {k1_ms:.2f} ms "
+        f"({res['k1_share'] or 0:.3f}); K1 backward (cuDNN, {bwd_range.count} calls) "
+        f"{bwd_dev_ms:.2f} ms; every cuDNN dgrad/wgrad kernel {res['cudnn_grad_conv_ms']:.2f} "
+        f"ms x{res['cudnn_grad_conv_launches']}; fused_conv3x3_plain never ran")
+    for r in rows[:25]:
+        log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
+    return res
+
+
+def phase_imitation(torch, conv, attention, Config, imitation, pipeline, out_dir):
+    """`imitation.run` for IMITATION_STEPS steps at Config() (the canvas
+    PolicyNet2, ResNet-50, the explicit device source) and at the
+    pipeline's configuration (the attention policy, 160^2, the raster
+    source, texture 1.0): launches per step (K2, K3 and K4 once per encoder
+    block each with the attention policy, no port kernel with the canvas
+    one), finite loss, top2_acc and exposure, π₂ and the heads moved and the
+    backbone not; seconds per step."""
+    import dataclasses
+
+    res = {}
+    for name, base, texture, vel in (("canvas", Config(), 0.0, 1.5),
+                                     ("attention", pipeline.default_config(20, 4), 1.0, 0.0)):
+        run_root = os.path.join(out_dir, f"smoke_imitation_{name}")
+        shutil.rmtree(run_root, ignore_errors=True)
+        cfg = base.replace(run=dataclasses.replace(base.run, run_dir=run_root, log_every=1))
+        depth = cfg.model.attn_depth if name == "attention" else 0
+        per_step = {"K1": 0, "K2": depth, "K3": depth, "K4": depth}
+        marks = []
+
+        def log_cb(i, metrics):
+            torch.cuda.synchronize()
+            marks.append((time.time(), _counts(conv, attention), _finite_metrics(metrics)))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(conv, attention)   # counts from here are imitation.run's
+        t0 = time.time()
+        state = imitation.run(cfg, steps=IMITATION_STEPS, log_cb=log_cb, data_texture=texture,
+                              data_texture_vel=vel, device="cuda")
+        torch.cuda.synchronize()
+        total_s = time.time() - t0
+        prev = {k: 0 for k in per_step}
+        for i, (_, counts, metrics) in enumerate(marks):
+            d = {k: counts[k] - prev[k] for k in counts}
+            if d != per_step:
+                raise AssertionError(f"imitation ({name}) step {i} launched {d}, "
+                                     f"expected {per_step}")
+            if not {"Loss/expert_loss", "Imitation/top2_acc", "Imitation/exposure"} <= set(metrics):
+                raise AssertionError(f"imitation ({name}) metrics {sorted(metrics)}")
+            prev = counts
+        if len(marks) != IMITATION_STEPS or state.step != IMITATION_STEPS:
+            raise AssertionError(f"imitation ({name}): {len(marks)} steps, state.step {state.step}")
+        mods = imitation.make_modules(cfg, device="cuda")
+        fresh = imitation.init_state(cfg, mods, cfg.run.seed)
+        heads = {k: v for k, v in fresh.vp_params.items() if not k.startswith("backbone.")}
+        moved = {"pn2": _moved(state.pn2_params, fresh.pn2_params),
+                 "heads": _moved(state.vp_params, heads)}
+        backbone_same = all(torch.equal(state.vp_params[k], v) for k, v in fresh.vp_params.items()
+                            if k.startswith("backbone."))
+        if not (all(v > 0 and math.isfinite(v) for v in moved.values()) and backbone_same):
+            raise AssertionError(f"imitation ({name}): moved {moved}, backbone unchanged "
+                                 f"{backbone_same}")
+        del mods
+        _drop_checkpoints(run_root)
+        iter_s = [marks[0][0] - t0] + [marks[i][0] - marks[i - 1][0]
+                                       for i in range(1, len(marks))]
+        res[name] = dict(steps=IMITATION_STEPS, total_s=total_s, iter_s=iter_s,
+                         sec_per_step=_median(iter_s[1:]), launches_per_step=per_step,
+                         metrics=[m[2] for m in marks], moved=moved,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"imitation ({name}, {cfg.data.frame_size[0]}^2, {cfg.data.synthetic_scheme} "
+            f"source): {IMITATION_STEPS} steps in {total_s:.2f} s (per step "
+            + ", ".join(f"{x:.3f}" for x in iter_s) + f" s; the first includes set-up), "
+            f"launches {per_step} per step, last metrics {marks[-1][2]}, moved {moved}, "
+            f"backbone unchanged, peak {res[name]['peak_mem_gb']:.2f} GB")
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, rl, evaluate,
+                   here, out_dir):
+    """`pipeline.run(default_config(20, 4), ...)` with a few steps per stage:
+    each stage's launch counts (the stage functions wrapped for this run
+    only), the record's keys as the JAX `run` writes them; then
+    `python -m rovr_torch pretrain`, `imitate` and `pipeline` as
+    subprocesses."""
+    run_root = os.path.join(out_dir, "smoke_pipeline")
+    shutil.rmtree(run_root, ignore_errors=True)
+    import dataclasses
+
+    cfg = pipeline.default_config(20, 4)
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, run_dir=run_root))
+    t_steps, depth, n_upd = cfg.rl.time_steps, cfg.model.attn_depth, cfg.rl.n_updates_per_ppo
+    stages, originals = [], {}
+
+    def counted(mod, fn_name):
+        real = getattr(mod, fn_name)
+        originals[(mod, fn_name)] = real
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            _zero_counts(conv, attention)   # counts from here are this stage's
+            t = time.time()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            stages.append((f"{mod.__name__.rsplit('.', 1)[-1]}.{fn_name}",
+                           dict(_counts(conv, attention),
+                                K1_backward=conv.fused_conv3x3.backward_calls),
+                           time.time() - t, kw))
+            return out
+        setattr(mod, fn_name, wrapped)
+
+    for mod, fn_name in ((pretrain_local, "run"), (imitation, "run"), (rl, "run"),
+                         (evaluate, "run"), (evaluate, "run_ci")):
+        counted(mod, fn_name)
+    out_path = os.path.join(run_root, "record.json")
+    t0 = time.time()
+    try:
+        rec = pipeline.run(cfg, pretrain_steps=4, imitation_steps=4, rl_iterations=2,
+                           ppo_from_random_iterations=1, eval_videos=4, eval_ci_clips=4,
+                           eval_ci_draws=2, out_path=out_path, device="cuda")
+    finally:
+        for (mod, fn_name), real in originals.items():
+            setattr(mod, fn_name, real)
+    total_s = time.time() - t0
+
+    def rl_counts(iters):
+        return {"K1": 3 * t_steps * iters, "K2": depth * (t_steps + 2 * n_upd + 1) * iters,
+                "K3": 2 * depth * n_upd * iters, "K4": 2 * depth * n_upd * iters,
+                "K1_backward": 0}
+
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K1_backward": 0}
+    want = [("pretrain_local.run", dict(zero, K1=3 * 4 + 3, K1_backward=3 * 4)),
+            ("imitation.run", dict(zero, K2=depth * 4, K3=depth * 4, K4=depth * 4)),
+            ("rl.run", rl_counts(2)), ("rl.run", rl_counts(1))]
+    want += [("evaluate.run", dict(zero, K1=3 * 2 * t_steps, K2=depth * t_steps))] * 4
+    want += [("evaluate.run_ci", dict(zero, K1=3 * 3 * t_steps, K2=depth * 2 * t_steps))] * 4
+    got = [(name, counts) for name, counts, _, _ in stages]
+    if got != want:
+        raise AssertionError(f"pipeline stage launches {got}, expected {want}")
+    with open(out_path) as f:
+        written = json.load(f)
+    if set(rec) != JAX_PIPELINE_KEYS or set(written) != JAX_PIPELINE_KEYS:
+        raise AssertionError(f"pipeline record keys {sorted(rec)}")
+    flat = [v for k in ("eval_trained", "eval_random_policy") for v in rec[k].values()]
+    if not all(math.isfinite(v) for v in flat) or not rec["pretrain"] or not rec["rl"]:
+        raise AssertionError("pipeline record: empty curves or non-finite eval metrics")
+    _drop_checkpoints(run_root)
+    res = dict(total_s=total_s, stages=[dict(stage=n, launches=c, seconds=t)
+                                        for n, c, t, _ in stages],
+               eval_trained=rec["eval_trained"], ppo_ablation=rec["ppo_ablation"],
+               ci_masked_psnr=rec["ablation_ci"]["greedy"]["masked_psnr_agentic"])
+    log(f"pipeline (default_config(20, 4), 4 + 4 steps, 2 + 1 RL iterations, 4 eval arms): "
+        f"{total_s:.1f} s; stages " + "; ".join(
+            f"{n} {t:.1f} s {c}" for n, c, t, _ in stages))
+
+    sub_root = os.path.join(run_root, "cli")
+    cli_s = {}
+    for args, want_out in ((("pretrain", "--steps", "2"), "[pretrain 1]"),
+                           (("imitate", "--steps", "2"), "[imitate 1]"),
+                           (("pipeline", "--pretrain_steps", "2", "--imitation_steps", "2",
+                             "--rl_iterations", "1", "--eval_videos", "4", "--eval_ci_clips",
+                             "4", "--eval_ci_draws", "2", "--out",
+                             os.path.join(sub_root, "record.json")), "record written")):
+        printed, secs = python_m(here, *args, "--run_dir", sub_root)
+        if want_out not in printed:
+            raise AssertionError(f"python -m rovr_torch {args[0]}: {printed[-2000:]}")
+        cli_s[args[0]] = secs
+    _drop_checkpoints(sub_root)
+    res["cli_s"] = cli_s
+    log("python -m rovr_torch " + ", ".join(f"{k} {v:.2f} s" for k, v in cli_s.items())
+        + " as subprocesses: exit 0")
     return res
 
 
@@ -1210,11 +1686,11 @@ def main() -> int:
 
     from rovr_torch import cli, infer
     from rovr_torch.config import Config
-    from rovr_torch.data import synthetic
+    from rovr_torch.data import corruption, device_synthetic, synthetic
     from rovr_torch.models.layers import flax_init_state
     from rovr_torch.models.local_net import LocalNetUNet
     from rovr_torch.ops import attention, conv, cuda_build
-    from rovr_torch.train import evaluate, rl
+    from rovr_torch.train import evaluate, imitation, pipeline, pretrain_local, rl
     from rovr_torch.utils import checkpoint
 
     t_start = time.time()
@@ -1249,6 +1725,7 @@ def main() -> int:
             f"{ptxas[f'{kid}_tma_dynamic_smem']}")
 
     rows, k1_err = phase_k1(torch, conv, F)
+    k1_bwd, k1_bwd_err = phase_k1_backward(torch, conv, F)
     attn, attn_err = phase_attention(torch, attention, F)
     unet = phase_unet(torch, conv, LocalNetUNet, flax_init_state)
     serving, mods, state, cfg, u8 = phase_serving(torch, np, conv, attention, Config,
@@ -1286,6 +1763,16 @@ def main() -> int:
                         out_dir)
     torch.cuda.empty_cache()
     cli_res = phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir)
+    torch.cuda.empty_cache()
+    source = phase_source(torch, Config, device_synthetic, corruption, synthetic)
+    torch.cuda.empty_cache()
+    pretrain = phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint,
+                              out_dir)
+    torch.cuda.empty_cache()
+    imitate = phase_imitation(torch, conv, attention, Config, imitation, pipeline, out_dir)
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, rl,
+                          evaluate, here, out_dir)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -1311,6 +1798,12 @@ def main() -> int:
                "spatial tile, zero-filled halo) and 3-D boxes of the HWIO weights, "
                "128B swizzle, 4-stage mbarrier ring, wgmma m64n256k16 bf16 -> f32 in "
                "two consumer warpgroups, bias + ReLU on the accumulators",
+        backward="cuDNN's conv gradient in bf16 (fused_conv3x3_backward, stock PyTorch, "
+                 "not a kernel port), per pretrain UNet call at batch 24, 256^2",
+        backward_max_abs_err=k1_bwd_err,
+        **{f"backward_{key}": sum(r[key] for r in k1_bwd) for key in (
+            "ms", "device_ms", "cudnn_fwd_bwd_ms", "cudnn_fwd_bwd_device_ms",
+            "old_plain_autograd_ms", "bound_ms")},
     )]
     for kid, kname, fn, line, lib_what in (
             ("K2", "flash_attention_fwd", "fwd", 94, "F.scaled_dot_product_attention forward"),
@@ -1357,12 +1850,21 @@ def main() -> int:
     for row in kernels[1:]:
         row["per"] += ("; mma_ms and mma_device_ms: the mma.sync kernel of the first port on "
                        "the same inputs, by its test hook")
+    # launches per pretrain step (Config(), batch 24) and per imitation step
+    # (Config()'s canvas policy; the pipeline config's attention policy)
+    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):
+        row["launches_per_pretrain_step"] = pretrain["launches_per_step"].get(kid, 0)
+        row["launches_per_imitation_step"] = {
+            name: r["launches_per_step"][kid] for name, r in imitate.items()}
+    kernels[0]["backward_calls_per_pretrain_step"] = pretrain["launches_per_step"]["K1_backward"]
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
-                  ptxas=ptxas, k1=rows, attention=attn, unet=unet, serving=serving,
+                  ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
+                  serving=serving,
                   profile=profile, rollout_rewards=rewards, policy5=policy,
                   setup5_s=setup5_s, source5_s=source5_s, serving5=serving5,
                   train5=train5, split_train5=split5, profile_train5=profile5,
                   rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
+                  source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

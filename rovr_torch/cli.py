@@ -1,12 +1,16 @@
 """Command line of the PyTorch port: `python -m rovr_torch <cmd> [flags]`
 (rovr_tpu/cli.py).
 
-Subcommands `rl` (RL training, `train.rl.run`), `eval` (agentic against
-sequential reconstruction, `train.evaluate.run`) and `reconstruct`
-(inference, `infer.run`), with the JAX package's flags and defaults, built
-on `Config()` as it builds them. `--device` picks where the port runs: the
-GPU unless `cpu` is asked for; it never falls back. `pretrain`, `imitate`,
-`pipeline` and `convert` are not ported yet and say so.
+Subcommands `rl` (RL training, `train.rl.run`), `pretrain` (the UNet,
+`train.pretrain_local.run`), `imitate` (the warm start of the context
+policy, `train.imitation.run`), `pipeline` (pretrain -> imitate -> RL ->
+held-out eval, `train.pipeline.run`), `eval` (agentic against sequential
+reconstruction, `train.evaluate.run`) and `reconstruct` (inference,
+`infer.run`), with the JAX package's flags and defaults, built on
+`Config()` (`pipeline`: on `pipeline.default_config`) as it builds them.
+Without a dataset they draw synthetic clips made on the device. `--device`
+picks where the port runs: the GPU unless `cpu` is asked for; it never
+falls back. `convert` is not ported yet and says so.
 
 Flags whose machinery is not ported raise NotImplementedError: folder
 datasets (`--root_folder` naming a directory), `--warm_start` (it reads the
@@ -25,9 +29,6 @@ from typing import List, Optional
 from rovr_torch.config import Config
 
 NOT_PORTED = {
-    "pretrain": "ROADMAP.md Queue 1 item 4",
-    "imitate": "ROADMAP.md Queue 1 item 4",
-    "pipeline": "ROADMAP.md Queue 1 item 4",
     "convert": "ROADMAP.md Queue 1 item 7",
 }
 
@@ -127,6 +128,106 @@ def cmd_rl(argv: List[str]) -> int:
     return 0
 
 
+def pretrain_config(argv: List[str]):
+    """(cfg, args) of `pretrain`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch pretrain")
+    p.add_argument("--steps", type=int, default=10_000)
+    p.add_argument("--batch_size", type=int, default=24)
+    p.add_argument("--lr", type=float, default=1e-4)
+    _base_parser(p)
+    args = p.parse_args(argv)
+    cfg = _apply_base(Config(), args)
+    cfg = cfg.replace(pretrain=dataclasses.replace(
+        cfg.pretrain, steps=args.steps, batch_size=args.batch_size, lr=args.lr))
+    return cfg, args
+
+
+def cmd_pretrain(argv: List[str]) -> int:
+    """Local-net UNet pretraining (train_local_net_unet.py)."""
+    cfg, args = pretrain_config(argv)
+    _check_dataset(args)
+    from rovr_torch.train import pretrain_local
+
+    pretrain_local.run(cfg, steps=args.steps, log_cb=_print_metrics("pretrain"),
+                       device=args.device)
+    return 0
+
+
+def imitate_config(argv: List[str]):
+    """(cfg, args) of `imitate`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch imitate")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=2e-4)
+    _base_parser(p)
+    args = p.parse_args(argv)
+    cfg = _apply_base(Config(), args)
+    cfg = cfg.replace(imitation=dataclasses.replace(cfg.imitation, steps=args.steps,
+                                                    lr=args.lr))
+    return cfg, args
+
+
+def cmd_imitate(argv: List[str]) -> int:
+    """Imitation warm start of the context policy (imitation_learning.py)."""
+    cfg, args = imitate_config(argv)
+    _check_dataset(args)
+    from rovr_torch.train import imitation
+
+    imitation.run(cfg, steps=args.steps, log_cb=_print_metrics("imitate"),
+                  device=args.device)
+    return 0
+
+
+def pipeline_config(argv: List[str]):
+    """(cfg, args) of `pipeline`'s flags."""
+    p = argparse.ArgumentParser("rovr_torch pipeline")
+    p.add_argument("--pretrain_steps", type=int, default=2000)
+    p.add_argument("--imitation_steps", type=int, default=600,
+                   help="teacher accuracy saturates near step 400 at the default scale")
+    p.add_argument("--rl_iterations", type=int, default=300)
+    p.add_argument("--policy1_iterations", type=int, default=0,
+                   help="stage 5, PPO on pi1 (not ported: > 0 raises)")
+    p.add_argument("--ppo_from_random_iterations", type=int, default=0,
+                   help="stage 3b: also PPO-train a random pi2 and evaluate it")
+    p.add_argument("--eval_videos", type=int, default=20)
+    p.add_argument("--eval_ci_clips", type=int, default=100,
+                   help="stage 4b: per-clip CI eval over this many held-out clips "
+                        "per arm; 0 disables")
+    p.add_argument("--eval_ci_draws", type=int, default=8,
+                   help="sampled-readout draws per clip for the CI eval")
+    p.add_argument("--vid_length", type=int, default=20)
+    p.add_argument("--rl_batch", type=int, default=4)
+    p.add_argument("--texture", type=float, default=1.0,
+                   help="mid-frequency texture blend of the synthetic clips")
+    p.add_argument("--texture_vel", type=float, default=0.0,
+                   help="texture drift px/frame (0 = static)")
+    p.add_argument("--log_spatio", action="store_true",
+                   help="log the RAFT flow-recovery signal every RL step")
+    p.add_argument("--out", type=str, default=None,
+                   help="write the full metric record (JSON) here")
+    _base_parser(p)
+    args = p.parse_args(argv)
+    from rovr_torch.train import pipeline
+
+    return _apply_base(pipeline.default_config(args.vid_length, args.rl_batch), args), args
+
+
+def cmd_pipeline(argv: List[str]) -> int:
+    """The learning pipeline: pretrain -> imitate -> RL -> held-out eval."""
+    cfg, args = pipeline_config(argv)
+    _check_dataset(args)
+    from rovr_torch.train import pipeline
+
+    pipeline.run(
+        cfg, pretrain_steps=args.pretrain_steps, imitation_steps=args.imitation_steps,
+        rl_iterations=args.rl_iterations, policy1_iterations=args.policy1_iterations,
+        ppo_from_random_iterations=args.ppo_from_random_iterations,
+        eval_videos=args.eval_videos, eval_ci_clips=args.eval_ci_clips,
+        eval_ci_draws=args.eval_ci_draws, texture=args.texture,
+        texture_vel=args.texture_vel, log_spatio=args.log_spatio, out_path=args.out,
+        device=args.device)
+    return 0
+
+
 def eval_config(argv: List[str]):
     """(cfg, args) of `eval`'s flags."""
     p = argparse.ArgumentParser("rovr_torch eval")
@@ -214,7 +315,8 @@ def cmd_reconstruct(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"rl": cmd_rl, "eval": cmd_eval, "reconstruct": cmd_reconstruct}
+COMMANDS = {"rl": cmd_rl, "pretrain": cmd_pretrain, "imitate": cmd_imitate,
+            "eval": cmd_eval, "pipeline": cmd_pipeline, "reconstruct": cmd_reconstruct}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

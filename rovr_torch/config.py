@@ -5,9 +5,9 @@ field for field and with the same defaults, so a config built for one package
 can be rebuilt for the other with `dataclasses.asdict`. The port keeps its own
 copy rather than importing the JAX package's, so that `rovr_torch` runs where
 JAX is not installed. Some fields steer parts of the JAX package the port has
-not reached yet (mesh, attention policy, pi1, RAFT, pretrain, imitation); the
-port's entry points reject the options they do not run. See the JAX file for
-the history behind each knob.
+not reached yet (the mesh, pi1 and its ActionLSTM, the parallel attention
+paths, the data loaders' workers); the port's entry points reject the options
+they do not run. See the JAX file for the history behind each knob.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ class ModelConfig:
     feature_dim: int = 1024
     # ActionLSTM (not in the port yet)
     lstm_hidden_dim: int = 1024
-    # Attention context policy (not in the port yet)
+    # Attention context policy
     attn_hidden_dim: int = 256
     attn_heads: int = 4
     attn_depth: int = 2

@@ -1,9 +1,10 @@
 """Synthetic video corruption: brightness shifts, pixel noise, box masks.
 
-The port's numpy-only copy of the parts of `rovr_tpu/data/corruption.py`
-that `synthetic.synthetic_batch` needs (`raster_box`, `jitter_box`,
-`corrupt_frame`), same math and same generator draws, so both packages make
-the same clips from the same seed.
+The port's numpy-only copy of `rovr_tpu/data/corruption.py` (`raster_box`,
+`jitter_box`, `corrupt_frame`, the explicit scheme's `corrupt_mask_explicit`
+and `corrupt_frame_explicit`), same math and same generator draws, so both
+packages make the same clips from the same seed; `raster_box_masks` is the
+torch twin of its `raster_box_masks_jax`, for masks made on the device.
 
 Geometry notes (vs the original ROVR data code, video_ds.py:18-89): the
 original computes a jittered random box and then DISCARDS it (`mask`
@@ -14,19 +15,23 @@ box. The default here reproduces that (the random box has no effect); pass
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 # Deterministic raster box geometry (video_ds.py:62-87).
 RASTER_BOX_H = 100
 RASTER_BOX_W = 150
 FRAMES_PER_SECTION = 8
 
+# Explicit-dataset jittered box geometry (video_ds_explicit.py:36-60).
+EXPLICIT_BOX_H = 50   # 100 // 2
+EXPLICIT_BOX_W = 100  # 200 // 2
 # randint(-25 // 2, 25 // 2) = randint(-13, 12): Python floor division makes
-# the jitter range ASYMMETRIC (video_ds.py:46-47).
-JITTER_X_LO, JITTER_X_HI = -13, 12
-JITTER_Y_LO, JITTER_Y_HI = -63, 62
+# the jitter range ASYMMETRIC (video_ds_explicit.py:48-49, video_ds.py:46-47).
+EXPLICIT_JITTER_X_LO, EXPLICIT_JITTER_X_HI = -13, 12
+EXPLICIT_JITTER_Y_LO, EXPLICIT_JITTER_Y_HI = -63, 62
 
 
 def raster_box(frame_index: int, h: int, w: int) -> Tuple[int, int, int, int]:
@@ -53,8 +58,8 @@ def jitter_box(
     slice_idx = frame_index % 8
     cx = slice_idx * slice_width + slice_width // 2
     cy = section_idx * section_height + section_height // 2
-    cx += int(rng.integers(JITTER_X_LO, JITTER_X_HI + 1))
-    cy += int(rng.integers(JITTER_Y_LO, JITTER_Y_HI + 1))
+    cx += int(rng.integers(EXPLICIT_JITTER_X_LO, EXPLICIT_JITTER_X_HI + 1))
+    cy += int(rng.integers(EXPLICIT_JITTER_Y_LO, EXPLICIT_JITTER_Y_HI + 1))
     start_x = max(0, cx - (225 // 2) // 2)
     end_x = min(w, start_x + 225 // 2)
     start_y = max(0, cy - (125 // 2) // 2)
@@ -108,3 +113,57 @@ def corrupt_frame(
     mask[y0:y1, x0:x1, :] = 0
 
     return frame * mask, mask
+
+
+def corrupt_mask_explicit(
+    h: int, w: int, location: int, rng: np.random.Generator, mask: np.ndarray
+) -> np.ndarray:
+    """Zero one jittered box at raster `location` into `mask`.
+
+    Parity: video_ds_explicit.py:36-60.
+    """
+    section_height = h // 3
+    slice_width = w // 8
+    section_idx = location // 8
+    slice_idx = location % 8
+    cx = slice_idx * slice_width + slice_width // 2
+    cy = section_idx * section_height + section_height // 2
+    cx += int(rng.integers(EXPLICIT_JITTER_X_LO, EXPLICIT_JITTER_X_HI + 1))
+    cy += int(rng.integers(EXPLICIT_JITTER_Y_LO, EXPLICIT_JITTER_Y_HI + 1))
+    start_x = max(0, cx - EXPLICIT_BOX_W // 2)
+    end_x = min(w, start_x + EXPLICIT_BOX_W)
+    start_y = max(0, cy - EXPLICIT_BOX_H // 2)
+    end_y = min(h, start_y + EXPLICIT_BOX_H)
+    mask[start_y:end_y, start_x:end_x, :] = 0
+    return mask
+
+
+def corrupt_frame_explicit(
+    frame: np.ndarray, locations: Sequence[int], rng: np.random.Generator
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Apply one jittered box per mask location (video_ds_explicit.py:62-71)."""
+    h, w, _ = frame.shape
+    mask = np.ones_like(frame)
+    for location in locations:
+        mask = corrupt_mask_explicit(h, w, int(location), rng, mask)
+    return frame * mask, mask
+
+
+def raster_box_masks(frame_indices: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Masks of the deterministic raster boxes, on frame_indices' device.
+
+    frame_indices: int tensor (S,) of ORIGINAL (pre-//2) frame indices, as fed
+    to corrupt_frame. Returns float32 mask (S, H, W, 1), 1 = intact: the
+    boxes of `raster_box` as broadcast comparisons, no gathers."""
+    idx = frame_indices.long() // 2
+    section_idx = idx // FRAMES_PER_SECTION
+    position_idx = idx % FRAMES_PER_SECTION
+    start_y = section_idx * h // 3
+    end_y = torch.clamp(start_y + RASTER_BOX_H, max=h)
+    start_x = position_idx * w // 8
+    end_x = torch.clamp(start_x + RASTER_BOX_W, max=w)
+    ys = torch.arange(h, device=idx.device)[None, :, None]
+    xs = torch.arange(w, device=idx.device)[None, None, :]
+    in_box = ((ys >= start_y[:, None, None]) & (ys < end_y[:, None, None])
+              & (xs >= start_x[:, None, None]) & (xs < end_x[:, None, None]))
+    return (~in_box).float()[..., None]

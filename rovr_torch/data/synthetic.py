@@ -3,8 +3,9 @@ datasets, for tests, `infer.run` and the chip smoke run when no frame
 tree is on disk.
 
 The port's numpy-only copy of `rovr_tpu/data/synthetic.py`'s
-`synthetic_clip` and `synthetic_batch`: the same draws from the same
-`np.random.Generator`, so both packages make identical clips from one seed.
+`synthetic_clip`, `synthetic_batch` and `synthetic_explicit_batch`: the same
+draws from the same `np.random.Generator`, so both packages make identical
+clips from one seed.
 Frames are smooth moving gradients plus drifting blobs, so inpainting is
 meaningful (not pure noise).
 """
@@ -15,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-from rovr_torch.data import corruption
+from rovr_torch.data import corruption, teacher
 
 
 def synthetic_clip(
@@ -73,6 +74,39 @@ def synthetic_batch(
         )
     f = np.float32(1.0 / 255.0)
     return corrupted * f, clip * f, masks.astype(np.float32)
+
+
+def synthetic_explicit_batch(
+    seed: int,
+    height: int = 256,
+    width: int = 256,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(corrupted, original, masks, positives, negatives) — teacher-labeled.
+
+    Same contract as the explicit dataset (video_ds_explicit.py:112), NHWC:
+    20 frames with structured masks, (20,16,2) positive and (20,3,2) negative
+    context pairs.
+    """
+    rng = np.random.default_rng(seed)
+    assign = teacher.sample_assignment(rng)
+    clip = synthetic_clip(rng, teacher.NUM_FRAMES, height, width)
+    # the explicit dataset shuffles frame order by the permutation
+    # (video_ds_explicit.py:90)
+    clip = clip[assign.frame_order]
+    corrupted = np.empty_like(clip)
+    masks = np.empty_like(clip)
+    for s in range(teacher.NUM_FRAMES):
+        corrupted[s], masks[s] = corruption.corrupt_frame_explicit(
+            clip[s], assign.frame_masks[s], rng
+        )
+    f = np.float32(1.0 / 255.0)
+    return (
+        corrupted * f,
+        clip * f,
+        masks.astype(np.float32),
+        assign.positives,
+        assign.negatives,
+    )
 
 
 def synthetic_clips(

@@ -27,9 +27,14 @@ and cuDNN's in PERF.md.
 
 `fused_conv3x3` launches the kernel for a CUDA tensor and uses the plain
 version `fused_conv3x3_plain` only for a CPU tensor. There is no fallback: a
-CUDA input the kernel does not take raises. The backward (an
-`autograd.Function`) is the plain version's gradient, as the TPU op's
-backward is the XLA conv's vjp.
+CUDA input the kernel does not take raises.
+
+The backward (`fused_conv3x3_backward`, the same code on every device) is
+the stock convolution gradient in the compute dtype (cuDNN on the card), as
+the TPU op's backward is XLA's vjp of a plain conv in x's dtype
+(rovr_tpu/ops/pallas/conv.py:169-207): no Pallas kernel to port. The forward
+saves its output y; the ReLU mask is y > 0 (JAX's `maximum` vjp halves the
+gradient at an exact tie y == 0, a set of measure zero).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from rovr_torch.ops import cuda_build
 
@@ -48,19 +54,42 @@ def fused_conv3x3_plain(x, kernel, bias, relu: bool = True):
     """The plain version: the sum of nine shifted (B*H*W, Cin) x (Cin, Cout)
     products in f32, then bias and ReLU in f32, cast back to x's dtype.
     The kernel is rounded to x's dtype first, as the TPU op casts it."""
-    b, h, w, cin = x.shape
-    cout = kernel.shape[-1]
-    k = kernel.to(x.dtype).float()
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    acc = None
-    for dy in range(3):
-        for dx in range(3):
-            tap = xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin) @ k[dy, dx]
-            acc = tap if acc is None else acc + tap
-    acc = acc + bias.float()
-    if relu:
-        acc = torch.relu(acc)
-    return acc.reshape(b, h, w, cout).to(x.dtype)
+    with record_function("fused_conv3x3_plain"):  # a profiler trace shows its use
+        b, h, w, cin = x.shape
+        cout = kernel.shape[-1]
+        k = kernel.to(x.dtype).float()
+        xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+        acc = None
+        for dy in range(3):
+            for dx in range(3):
+                tap = xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin) @ k[dy, dx]
+                acc = tap if acc is None else acc + tap
+        acc = acc + bias.float()
+        if relu:
+            acc = torch.relu(acc)
+        return acc.reshape(b, h, w, cout).to(x.dtype)
+
+
+def fused_conv3x3_backward(x, kernel, y, g, relu: bool = True):
+    """Gradients (gx, gk, gb) of y = fused_conv3x3(x, kernel, bias, relu)
+    for the output gradient g, from the saved output y.
+
+    The conv's gradients are `aten.convolution_backward` in x's dtype on the
+    NHWC tensors viewed as channels-last NCHW (cuDNN on the card, f32
+    accumulation): gx in x's dtype, gk in the kernel's dtype (HWIO); gb is
+    the f32 sum of the masked g. Adds one to `fused_conv3x3.backward_calls`."""
+    with record_function("fused_conv3x3_backward"):
+        dt = x.dtype
+        gm = g.to(dt)
+        if relu:
+            gm = torch.where(y > 0, gm, torch.zeros((), dtype=dt, device=gm.device))
+        gb = gm.sum((0, 1, 2), dtype=torch.float32)
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gm.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+            kernel.to(dt).permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [True, True, False])
+        fused_conv3x3.backward_calls += 1
+        return (gx.permute(0, 2, 3, 1), gw.permute(2, 3, 1, 0).to(kernel.dtype), gb)
 
 
 def check_kernel_args(x, kernel, bias) -> None:
@@ -133,25 +162,43 @@ def _launch(x, kernel, bias, relu: bool):
     return y
 
 
+def fused_conv3x3_backward_plain(x, kernel, y, g, relu: bool = True):
+    """The f32 reference of `fused_conv3x3_backward` on the same inputs:
+    autograd of the plain conv (bias, no ReLU) for g masked by the saved
+    output, so both apply the same ReLU mask. (The bf16 kernel and the f32
+    plain forward sum in other orders and can round a pre-activation within
+    ~1e-6 of zero to opposite signs; such a flip moves whole gradient
+    terms and says nothing of the backward's precision.) Returns (gx, gk,
+    gb) in f32. Nothing in the port calls it."""
+    with torch.enable_grad():
+        xs, ks = (t.detach().float().requires_grad_() for t in (x, kernel))
+        bs = torch.zeros(kernel.shape[-1], device=x.device, requires_grad=True)
+        gm = g.float()
+        if relu:
+            gm = torch.where(y > 0, gm, torch.zeros((), device=gm.device))
+        out = fused_conv3x3_plain(xs, ks, bs, False)
+        return torch.autograd.grad(out, (xs, ks, bs), gm)
+
+
 class _FusedConv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, bias, relu):
-        ctx.save_for_backward(x, kernel, bias)
-        ctx.relu = relu
         if x.device.type == "cpu":
-            return fused_conv3x3_plain(x, kernel, bias, relu)
-        if x.device.type != "cuda":
+            y = fused_conv3x3_plain(x, kernel, bias, relu)
+        elif x.device.type == "cuda":
+            y = _launch(x, kernel, bias, relu)
+        else:
             raise ValueError(f"fused_conv3x3 runs on cuda or cpu, got {x.device}")
-        return _launch(x, kernel, bias, relu)
+        ctx.save_for_backward(x, kernel, y)
+        ctx.relu = relu
+        ctx.bias_dtype = bias.dtype
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, kernel, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            xs, ks, bs = (t.detach().requires_grad_() for t in (x, kernel, bias))
-            y = fused_conv3x3_plain(xs, ks, bs, ctx.relu)
-            gx, gk, gb = torch.autograd.grad(y, (xs, ks, bs), g)
-        return gx, gk, gb, None
+        x, kernel, y = ctx.saved_tensors
+        gx, gk, gb = fused_conv3x3_backward(x, kernel, y, g, ctx.relu)
+        return gx, gk, gb.to(ctx.bias_dtype), None
 
 
 def fused_conv3x3(x, kernel, bias, relu: bool = True):
@@ -159,8 +206,10 @@ def fused_conv3x3(x, kernel, bias, relu: bool = True):
 
     x (B,H,W,Cin); kernel (3,3,Cin,Cout); bias (Cout,). A CUDA x launches
     the kernel (bf16 x and kernel, f32 bias; anything else raises) and adds
-    one to `fused_conv3x3.launches`; a CPU x runs the plain version."""
+    one to `fused_conv3x3.launches`; a CPU x runs the plain version. The
+    backward is `fused_conv3x3_backward` on either device."""
     return _FusedConv3x3.apply(x, kernel, bias, relu)
 
 
 fused_conv3x3.launches = 0
+fused_conv3x3.backward_calls = 0

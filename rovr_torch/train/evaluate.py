@@ -13,8 +13,8 @@ the rewards; XLA drops them from the JAX graph the same way). RAFT is built
 once and runs its frame pairs in chunks (`models/raft.pairwise_flows`).
 Randomness is an input: the sampled readout's Gumbel noise is a tensor or
 comes from a torch.Generator. Data: a dataset, a `source` with `next(i)`,
-or the host synthetic source (`rl.HostSyntheticSource`), which stands in
-for the JAX package's on-device one.
+or, by default, the on-device synthetic source (`rl.DeviceSyntheticSource`,
+textured clips included), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -210,7 +210,7 @@ def paired_delta(a, b) -> Dict[str, float]:
 def run_ci(cfg: Optional[Config] = None, state: Optional[rl.ROVRState] = None,
            num_videos: int = 100, sample_draws: int = 8, data_texture: float = 0.0,
            mods: Optional[EvalModules] = None,
-           source=None, device=None) -> Dict[str, Any]:
+           source=None, device=None, data_texture_vel: float = 1.5) -> Dict[str, Any]:
     """Held-out evaluation with confidence intervals: per-clip metrics over
     at least `num_videos` clips (batches of cfg.rl.batch_size), greedy and
     `sample_draws`-draw sampled readouts, mean and 95% CI per metric.
@@ -218,15 +218,17 @@ def run_ci(cfg: Optional[Config] = None, state: Optional[rl.ROVRState] = None,
     Every arm run with one cfg sees the same clips (seeded by cfg.run.seed)
     and the same noise (one generator seeded from cfg.run.seed + 1), so
     per-clip `paired_delta`s between arms cancel clip difficulty. Data: the
-    `source` with `next(i)` -> (corrupted, original, masks), else the host
-    synthetic source. Returns {"n_clips", "draws", "per_clip", "summary"}."""
+    `source` with `next(i)` -> (corrupted, original, masks), else the
+    on-device synthetic source (`data_texture`, `data_texture_vel`) on the
+    modules' device. Returns {"n_clips", "draws", "per_clip", "summary"}."""
     cfg = cfg or Config()
-    b, s = cfg.rl.batch_size, cfg.rl.vid_length
-    source = source or rl.HostSyntheticSource(cfg, b, data_texture)
+    b = cfg.rl.batch_size
     mods = mods or make_modules(cfg, device=device)
     if state is None:
         state = rl.init_state(cfg, mods.rovr, cfg.run.seed)
     dev = next(mods.raft.parameters()).device
+    source = source or rl.DeviceSyntheticSource(cfg, b, data_texture, data_texture_vel,
+                                                dev)
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed + 1)
     n_steps = max(1, -(-num_videos // b))  # ceil: at least num_videos clips
     acc: Dict[str, Dict[str, list]] = {"greedy": {}, "sampled": {}}
@@ -251,7 +253,7 @@ def run(cfg: Optional[Config] = None, dataset=None, num_videos: int = 20,
         data_texture: float = 0.0, weights: Optional[str] = None,
         init_params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         raft_params: Optional[Dict[str, torch.Tensor]] = None,
-        source=None, device=None) -> Dict[str, float]:
+        source=None, device=None, data_texture_vel: float = 1.5) -> Dict[str, float]:
     """Evaluation entry point: `eval_step` averaged over num_videos //
     cfg.rl.batch_size batches (at least one), written to
     <run_dir>/eval/<timestamp>/metrics.jsonl and returned.
@@ -263,14 +265,15 @@ def run(cfg: Optional[Config] = None, dataset=None, num_videos: int = 20,
     random) with a warning, because flow recovery and LPIPS under random
     weights exercise the plumbing only. `weights="converted"` against a
     "random" derivation raises. Data: `dataset` items (corrupted, original,
-    masks, ...), else `source`, else the host synthetic source."""
+    masks, ...), else `source`, else the on-device synthetic source
+    (`data_texture`, `data_texture_vel`)."""
     from rovr_torch.utils.checkpoint import run_dir
     from rovr_torch.utils.logging import MetricsWriter
 
     cfg = cfg or Config()
     b, s = cfg.rl.batch_size, cfg.rl.vid_length
     if dataset is None and source is None:
-        source = rl.HostSyntheticSource(cfg, b, data_texture)
+        source = rl.DeviceSyntheticSource(cfg, b, data_texture, data_texture_vel, device)
     lpips_random = not (init_params and "lpips_params" in init_params)
     raft_random = raft_params is None
     derived = "random" if (lpips_random or raft_random) else "converted"

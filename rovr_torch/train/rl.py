@@ -121,42 +121,55 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
     dev = resolve(device)
     dt = dtype if dtype is not None else torch.bfloat16
     m = cfg.model
-    if cfg.rl.context_policy == "attention":
-        pol, kw = AttentionContextPolicy, dict(
-            num_frames=m.pn2_num_frames, feature_dim=m.feature_dim,
-            hidden_dim=m.attn_hidden_dim, num_heads=m.attn_heads,
-            depth=m.attn_depth, patch_tokens=m.attn_patch_tokens,
-            temperature=m.pn2_temperature, dtype=dt, attn_impl=m.attn_impl,
-            pp_microbatches=m.attn_pp_microbatches,
-            moe_experts=m.attn_moe_experts,
-        )
-    elif cfg.rl.context_policy == "canvas":
-        pol, kw = PolicyNet2, dict(
-            num_frames=m.pn2_num_frames, fc_dims=m.pn2_fc_dims,
-            temperature=m.pn2_temperature, dtype=dt,
-            per_sample_stats=m.per_sample_stats, canvas_size=m.canvas_size,
-            feature_dim=m.feature_dim,
-        )
-    else:
-        raise ValueError(f"unknown context_policy {cfg.rl.context_policy!r}")
-    lp = dict(stages=m.lpips_stages) if m.lpips_stages else {}
     mods = ROVRModules(
-        vp=VideoProcessor(
-            canvas_size=m.canvas_size, tile=m.canvas_tile,
-            tiles_per_row=m.canvas_tiles_per_row, feature_dim=m.feature_dim,
-            dtype=dt, backbone_name=m.backbone,
-            spatial_pool=m.backbone_spatial_pool,
-        ),
-        actor2=pol(**kw),
-        critic2=pol(**kw, is_critic=True),
+        vp=make_video_processor(cfg, dt),
+        actor2=make_policy(cfg, dt),
+        critic2=make_policy(cfg, dt, is_critic=True),
         local_net=LocalNetUNet(channels=m.local_net_channels, dtype=dt),
-        lpips=LPIPS(dtype=dt, **lp),
+        lpips=make_lpips(cfg, dt),
         raft=_maybe_raft(cfg, dt),
     )
     for mod in mods:
         if mod is not None:
             mod.to(dev).requires_grad_(False)
     return mods
+
+
+def make_policy(cfg: Config, dt: torch.dtype, is_critic: bool = False) -> Policy:
+    """The context policy cfg.rl.context_policy names (PolicyNet2 for
+    "canvas", AttentionContextPolicy for "attention"), on the CPU."""
+    m = cfg.model
+    if cfg.rl.context_policy == "attention":
+        return AttentionContextPolicy(
+            num_frames=m.pn2_num_frames, feature_dim=m.feature_dim,
+            hidden_dim=m.attn_hidden_dim, num_heads=m.attn_heads,
+            depth=m.attn_depth, patch_tokens=m.attn_patch_tokens,
+            temperature=m.pn2_temperature, dtype=dt, attn_impl=m.attn_impl,
+            pp_microbatches=m.attn_pp_microbatches,
+            moe_experts=m.attn_moe_experts, is_critic=is_critic,
+        )
+    if cfg.rl.context_policy == "canvas":
+        return PolicyNet2(
+            num_frames=m.pn2_num_frames, fc_dims=m.pn2_fc_dims,
+            temperature=m.pn2_temperature, dtype=dt,
+            per_sample_stats=m.per_sample_stats, canvas_size=m.canvas_size,
+            feature_dim=m.feature_dim, is_critic=is_critic,
+        )
+    raise ValueError(f"unknown context_policy {cfg.rl.context_policy!r}")
+
+
+def make_video_processor(cfg: Config, dt: torch.dtype) -> VideoProcessor:
+    m = cfg.model
+    return VideoProcessor(
+        canvas_size=m.canvas_size, tile=m.canvas_tile,
+        tiles_per_row=m.canvas_tiles_per_row, feature_dim=m.feature_dim,
+        dtype=dt, backbone_name=m.backbone, spatial_pool=m.backbone_spatial_pool,
+    )
+
+
+def make_lpips(cfg: Config, dt: torch.dtype) -> LPIPS:
+    return LPIPS(dtype=dt, **(dict(stages=cfg.model.lpips_stages)
+                              if cfg.model.lpips_stages else {}))
 
 
 def _maybe_raft(cfg: Config, dt: torch.dtype) -> Optional[RAFTSmall]:
@@ -624,15 +637,17 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
 class HostSyntheticSource:
     """Synthetic clips made on the host (`data.synthetic.synthetic_clips`,
     seeded by cfg.run.seed): `next(i)` is batch i, (corrupted, original,
-    masks) float32 (B, S, H, W, 3) numpy arrays. It stands in for the JAX
-    package's on-device source, whose textured clips (`data_texture` != 0)
-    the port does not have yet (ROADMAP.md Queue 1 item 6)."""
+    masks) float32 (B, S, H, W, 3) numpy arrays of cfg.rl.vid_length frames,
+    under the random-mask corruption. A `source` a caller may pass to `run`
+    or `evaluate`; the drivers' default is the on-device source
+    (data/device_synthetic.make_source). It has no textured clips: those are
+    the device source's."""
 
     def __init__(self, cfg: Config, batch: int, data_texture: float = 0.0):
         if data_texture != 0.0:
             raise NotImplementedError(
-                "textured synthetic clips (data_texture != 0) come with the on-device "
-                "source, not in the port yet (ROADMAP.md Queue 1 item 6)")
+                "the host synthetic source makes no textured clips (data_texture != 0); "
+                "the on-device source (data/device_synthetic.make_source) does")
         self.cfg, self.batch = cfg, batch
 
     def next(self, i: int):
@@ -654,9 +669,31 @@ def dataset_batch(dataset, start: int, b: int, s: int, fields: int = 2):
     return out
 
 
+class DeviceSyntheticSource:
+    """The drivers' default clips: batch i of the on-device synthetic source
+    (data/device_synthetic.make_source: cfg.data.synthetic_scheme, seeded by
+    cfg.run.seed, `data_texture`, `data_texture_vel`), `next(i)` ->
+    (corrupted, original, masks) cut to cfg.rl.vid_length frames. That
+    source makes 20-frame clips: a longer vid_length raises ValueError."""
+
+    def __init__(self, cfg: Config, batch: int, data_texture: float = 0.0,
+                 data_texture_vel: float = 1.5, device=None):
+        from rovr_torch.data.device_synthetic import check_source_frames, make_source
+
+        check_source_frames(cfg.rl.vid_length)
+        self.s = cfg.rl.vid_length
+        self.src = make_source(cfg, batch, cfg.run.seed, data_texture, data_texture_vel,
+                               device)
+
+    def next(self, i: int):
+        corrupted, original, masks, _, _ = self.src.next(i)
+        return corrupted[:, :self.s], original[:, :self.s], masks[:, :self.s]
+
+
 def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = None,
         log_cb=None, init_params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-        data_texture: float = 0.0, source=None, device=None) -> ROVRState:
+        data_texture: float = 0.0, source=None, device=None,
+        data_texture_vel: float = 1.5) -> ROVRState:
     """The RL training loop: `iterations` train steps (default
     cfg.run.max_iterations), metrics and the corrupted | reconstructed |
     original strip of frame 0 every cfg.run.log_every, a checkpoint per
@@ -671,9 +708,10 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
     Data: `dataset`, indexable items whose [0], [1] are (>= S, H, W, 3)
     corrupted and original clips (no masks, as in the JAX `run`); else
     `source`, whose `next(i)` gives batch i as (corrupted, original, masks);
-    else the host synthetic source, whose masks add `Episode/exposure`
-    (`data_texture` != 0 raises: textured clips are not ported). Runs on
-    CUDA unless `device="cpu"`."""
+    else `DeviceSyntheticSource` (20-frame clips made on the device, textured
+    by `data_texture` and `data_texture_vel`), whose masks add
+    `Episode/exposure`. Runs on CUDA
+    unless `device="cpu"`."""
     from rovr_torch.utils.checkpoint import CheckpointManager, run_dir
     from rovr_torch.utils.logging import MetricsWriter
 
@@ -682,7 +720,7 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
     iterations = iterations if iterations is not None else cfg.run.max_iterations
     b, s = cfg.rl.batch_size, cfg.rl.vid_length
     if dataset is None and source is None:
-        source = HostSyntheticSource(cfg, b, data_texture)
+        source = DeviceSyntheticSource(cfg, b, data_texture, data_texture_vel, device)
     mods = make_modules(cfg, device=device)
     dev = next(mods.local_net.parameters()).device
     state = init_state(cfg, mods, cfg.run.seed, **(init_params or {}))

@@ -21,6 +21,10 @@ by module. The port's modules keep the flax names, so the map is by rule:
 No row permutation is needed for PolicyNet2's first final_fc layer: the
 port flattens its conv trunk in the same NHWC order as the JAX package.
 
+`pretrain_state_from_jax` and `imitation_state_from_jax` carry the other
+two workloads' states (`PretrainState`, `ImitationState`) by the same
+rules: their trees hold the same modules.
+
 RAFT-small's tree (`raft_params`, present only when the spatio signal is
 on) needs no rule of its own: its InstanceNorm `scale`/`bias` map as every
 norm's do, its block names (`layer1_0`, `conv_down`) are the port's module
@@ -110,3 +114,33 @@ def params_from_jax(jax_state: Any, device=None) -> ROVRState:
         opts[f"{f}_opt"] = opt if opt is not None else adam_init(params[f"{f}_params"])
     return ROVRState(**params, **opts, step=int(np.asarray(get("step", 0))))
 
+
+
+def pretrain_state_from_jax(jax_state: Any, device=None):
+    """JAX pretrain_local.PretrainState -> the port's, on `device` (default:
+    the CPU): the UNet's and LPIPS' parameters, the step count and the
+    UNet's Adam state."""
+    from rovr_torch.train.pretrain_local import PretrainState
+
+    dev = device or "cpu"
+    params = {k: v.to(dev) for k, v in module_params_from_jax(jax_state.params).items()}
+    lpips = {k: v.to(dev) for k, v in module_params_from_jax(jax_state.lpips_params).items()}
+    opt = _adam_from_jax(jax_state.opt_state, dev)
+    return PretrainState(step=int(np.asarray(jax_state.step)), params=params,
+                         opt_state=opt if opt is not None else adam_init(params),
+                         lpips_params=lpips)
+
+
+def imitation_state_from_jax(jax_state: Any, train_vp: bool = True, device=None):
+    """JAX imitation.ImitationState -> the port's, on `device` (default: the
+    CPU): π₂'s and the VideoProcessor's parameters and the step count. The
+    Adam state starts fresh over the trained parameters (π₂, and the
+    VideoProcessor's heads with `train_vp`): carry states of step 0."""
+    from rovr_torch.train.imitation import ImitationState, _trained_vp
+
+    dev = device or "cpu"
+    pn2 = {k: v.to(dev) for k, v in module_params_from_jax(jax_state.pn2_params).items()}
+    vp = {k: v.to(dev) for k, v in module_params_from_jax(jax_state.vp_params).items()}
+    trained = {f"pn2.{k}": v for k, v in pn2.items()}
+    trained.update({f"vp.{k}": v for k, v in vp.items() if _trained_vp(k, train_vp)})
+    return ImitationState(int(np.asarray(jax_state.step)), pn2, vp, adam_init(trained))

@@ -2,9 +2,10 @@
 
 The same argv must build the same config as `rovr_tpu.cli` (compared as
 `dataclasses.asdict`, with the JAX entry points stubbed out to catch it); the
-unported flags and subcommands must refuse; and `rl` then `reconstruct
---restore_from` run end to end on the CPU, on a tiny config put in place of
-`Config()`.
+unported flags and subcommands must refuse; `rl` then `reconstruct
+--restore_from`, and `pretrain` and `imitate`, run end to end on the CPU, on
+a tiny config put in place of `Config()`; `pipeline` hands its flags to
+`pipeline.run`.
 """
 
 import dataclasses
@@ -46,10 +47,21 @@ ARGVS = {
     "reconstruct": [[], ["--num_clips", "3", "--vid_length", "9", "--batch_size", "3",
                          "--context_policy", "attention", "--out", "o", "--data_parallel",
                          "1", "--restore_from", "ck"]],
+    "pretrain": [[], ["--steps", "7", "--batch_size", "5", "--lr", "3e-4", "--seed", "2",
+                      "--run_dir", "r", "--restore_from", "ck"]],
+    "imitate": [[], ["--steps", "9", "--lr", "1e-3", "--seed", "4", "--debug_short_dataset"]],
+    "pipeline": [[], ["--pretrain_steps", "3", "--imitation_steps", "4", "--rl_iterations",
+                      "5", "--ppo_from_random_iterations", "2", "--eval_videos", "6",
+                      "--eval_ci_clips", "8", "--eval_ci_draws", "3", "--vid_length", "12",
+                      "--rl_batch", "3", "--texture", "0.5", "--texture_vel", "1.0",
+                      "--log_spatio", "--out", "rec.json", "--seed", "7"]],
 }
 JAX_ENTRY = {"rl": ("rovr_tpu.train.rl", "run"),
               "eval": ("rovr_tpu.train.evaluate", "run"),
-              "reconstruct": ("rovr_tpu.infer", "run")}
+              "reconstruct": ("rovr_tpu.infer", "run"),
+              "pretrain": ("rovr_tpu.train.pretrain_local", "run"),
+              "imitate": ("rovr_tpu.train.imitation", "run"),
+              "pipeline": ("rovr_tpu.train.pipeline", "run")}
 
 
 def _jax_cfg(monkeypatch, cmd, argv):
@@ -63,7 +75,8 @@ def _jax_cfg(monkeypatch, cmd, argv):
 @pytest.mark.parametrize("cmd", sorted(ARGVS))
 def test_same_argv_builds_the_jax_config(monkeypatch, cmd):
     build = {"rl": tcli.rl_config, "eval": tcli.eval_config,
-             "reconstruct": tcli.reconstruct_config}[cmd]
+             "reconstruct": tcli.reconstruct_config, "pretrain": tcli.pretrain_config,
+             "imitate": tcli.imitate_config, "pipeline": tcli.pipeline_config}[cmd]
     for argv in ARGVS[cmd]:
         cfg_j = _jax_cfg(monkeypatch, cmd, argv)
         cfg_t, args = build(argv + ["--device", "cpu"])
@@ -82,12 +95,16 @@ def test_unported_flags_and_commands_refuse(tmp_path, capsys):
         tcli.main(["rl", "--root_folder", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         tcli.main(["reconstruct", "--data_parallel", "2"])
-    for cmd in ("pretrain", "imitate", "pipeline", "convert"):
-        assert tcli.main([cmd]) == 2
+    for cmd in ("pretrain", "imitate", "pipeline"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            tcli.main([cmd, "--root_folder", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tcli.main(["pipeline", "--policy1_iterations", "1", "--device", "cpu"])
+    assert tcli.main(["convert"]) == 2
     assert tcli.main(["nonsense"]) == 2
     assert tcli.main(["--help"]) == 0
     out = capsys.readouterr().out
-    assert "not ported yet: pretrain" in out and "convert" in out
+    assert "not ported yet: convert" in out
 
 
 def test_python_dash_m_help():
@@ -95,7 +112,8 @@ def test_python_dash_m_help():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
-    assert "usage: python -m rovr_torch {rl,eval,reconstruct}" in out.stdout
+    assert "usage: python -m rovr_torch {rl,pretrain,imitate,eval,pipeline,reconstruct}" \
+        in out.stdout
 
 
 def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):
@@ -125,3 +143,34 @@ def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert any(line.startswith("Eval/psnr_agentic:") for line in lines)
     assert not any(line.startswith(("Eval/flow_recovery", "Eval/lpips")) for line in lines)
     assert any("4 weight-dependent metrics withheld" in line for line in lines)
+
+
+def test_pretrain_imitate_and_pipeline_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """`pretrain` and `imitate` train and checkpoint on a tiny config;
+    `pipeline` passes every flag to `pipeline.run` on its default config."""
+    c = _tiny_config(batch_size=2)
+    tiny = from_dict(dataclasses.asdict(c.replace(
+        model=dataclasses.replace(c.model, **tiny_model_overrides(), pn2_num_frames=20,
+                                  canvas_size=160, canvas_tiles_per_row=5))))
+    monkeypatch.setattr(tcli, "Config", lambda: tiny)
+    run_dir = tmp_path / "runs"
+    assert tcli.main(["pretrain", "--steps", "2", "--batch_size", "2", "--run_dir",
+                      str(run_dir), "--device", "cpu"]) == 0
+    assert "[pretrain 1] Loss/mse_loss=" in capsys.readouterr().out
+    (ck,) = glob.glob(str(run_dir / "local_net_pretrain" / "*" / "checkpoints"))
+    assert os.listdir(ck) == ["0"]
+    assert tcli.main(["imitate", "--steps", "2", "--run_dir", str(run_dir),
+                      "--device", "cpu"]) == 0
+    assert "[imitate 1] Loss/expert_loss=" in capsys.readouterr().out
+    assert glob.glob(str(run_dir / "warm_start_pn2" / "*" / "checkpoints" / "0"))
+
+    from rovr_torch.train import pipeline
+
+    seen = []
+    monkeypatch.setattr(pipeline, "run", lambda cfg, **kw: seen.append((cfg, kw)) or {})
+    assert tcli.main(["pipeline", "--pretrain_steps", "3", "--texture", "0.5",
+                      "--eval_ci_clips", "0", "--out", "rec.json", "--device", "cpu"]) == 0
+    (cfg, kw), = seen
+    assert cfg.data.synthetic_scheme == "raster" and cfg.rl.context_policy == "attention"
+    assert kw["pretrain_steps"] == 3 and kw["texture"] == 0.5 and kw["eval_ci_clips"] == 0
+    assert kw["out_path"] == "rec.json" and kw["device"] == "cpu"

@@ -296,3 +296,36 @@ def test_cuda_kernel_matches_plain(cuda):
             ref = tconv.fused_conv3x3_plain(xc.float(), kc.float(), bc, relu)
             torch.cuda.synchronize()
             assert (y - ref).abs().max().item() <= K1_TOL * ref.abs().max().item()
+
+
+# (B, H, W, Cin, Cout) of conv3, conv4 and conv5 under the pretrain step
+# (batch 24, 256^2 frames) and at the pipeline's 160^2 frames (40^2 and 20^2
+# maps, ragged under K1's 4 x 32 spatial tile)
+PRETRAIN_SHAPES = [(24, 64, 64, 128, 256), (24, 32, 32, 256, 512), (24, 64, 64, 512, 256),
+                   (24, 40, 40, 128, 256), (24, 20, 20, 256, 512), (24, 40, 40, 512, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PRETRAIN_SHAPES)
+def test_cuda_k1_backward_at_pretrain_shapes(cuda, shape):
+    """On the card: K1's forward and its cuDNN backward in bf16 (gx, gk, gb)
+    against the backward's f32 plain twin on the same inputs (the same saved
+    output, so the same ReLU mask: K1's bf16 output and an f32 forward can
+    round a pre-activation near zero to opposite signs)."""
+    x, k, bias = _conv_inputs(7, *shape)
+    g = np.random.default_rng(8).standard_normal(shape[:3] + (shape[4],)).astype(np.float32)
+    xc, kc = (torch.from_numpy(a).cuda().bfloat16().requires_grad_() for a in (x, k))
+    bc = torch.from_numpy(bias).cuda().requires_grad_()
+    gc = torch.from_numpy(g).cuda().bfloat16()
+    before = tconv.fused_conv3x3.backward_calls, tconv.fused_conv3x3.launches
+    tconv.fused_conv3x3(xc, kc, bc, True).backward(gc)
+    assert (tconv.fused_conv3x3.backward_calls, tconv.fused_conv3x3.launches) == (
+        before[0] + 1, before[1] + 1)
+    y = tconv.fused_conv3x3(xc.detach(), kc.detach(), bc.detach(), True)
+    refs = tconv.fused_conv3x3_backward_plain(xc, kc, y, gc, True)
+    torch.cuda.synchronize()
+    for got, ref in zip((xc.grad, kc.grad, bc.grad), refs):
+        assert got.dtype == (torch.float32 if got is bc.grad else torch.bfloat16)
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= K1_TOL * ref.abs().max().item(), (shape, err)

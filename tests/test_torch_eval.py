@@ -164,17 +164,17 @@ def test_run_and_run_ci_on_the_host_source(pair, tmp_path):
     """`run` and `run_ci` end to end at tiny width: finite means, the random-weight
     marks, the t-interval summaries over every clip."""
     ct = pair["ct"].replace(run=dataclasses.replace(pair["ct"].run, run_dir=str(tmp_path)))
-    means = tevaluate.run(ct, num_videos=B, flow_size=FLOW, device="cpu")
+    host = trl.HostSyntheticSource(ct, B)
+    means = tevaluate.run(ct, num_videos=B, flow_size=FLOW, source=host, device="cpu")
     assert all(np.isfinite(v) for v in means.values())
     assert means["Eval/metric_weights_random"] == 1.0
     with pytest.raises(ValueError, match="converted"):
         tevaluate.run(ct, num_videos=B, flow_size=FLOW, weights="converted", device="cpu")
     res = tevaluate.run_ci(ct, num_videos=B + 1, sample_draws=2, mods=pair["mods_t"],
-                           state=pair["state_t"])
+                           state=pair["state_t"], source=host)
     assert res["n_clips"] == 2 * B
     for readout in ("greedy", "sampled"):
         for k, summ in res["summary"][readout].items():
             assert summ["n"] == 2 * B and np.isfinite(summ["mean"]), (readout, k)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tevaluate.run_ci(ct, num_videos=B, data_texture=1.0, mods=pair["mods_t"],
-                         state=pair["state_t"])
+    with pytest.raises(NotImplementedError, match="no textured clips"):
+        trl.HostSyntheticSource(ct, B, data_texture=1.0)

@@ -156,8 +156,10 @@ def test_dataset_path_and_unported_options(tmp_path):
     short = [(v[j][:2], o[j][:2]) for j in range(B)]
     with pytest.raises(ValueError, match="frames"):
         trl.run(ct, dataset=short, iterations=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trl.run(ct, iterations=1, data_texture=1.0, device="cpu")
+    # textured clips come from the default on-device source, with masks
+    _, tex = _cfg(tmp_path / "textured")
+    assert trl.run(tex, iterations=1, data_texture=1.0, device="cpu").step == 1
+    assert "Episode/exposure" in {r["tag"] for r in _records(tex)}
     p1 = ct.replace(rl=dataclasses.replace(ct.rl, use_policy1=True))
     with pytest.raises(NotImplementedError, match="item 5"):
         trl.run(p1, iterations=1, device="cpu")
