@@ -102,20 +102,40 @@ driven and read just after. Phases:
      exposure; π₂ and the VideoProcessor's heads moved, the backbone not;
  19. the pipeline (`pipeline.run(default_config(20, 4))`, 4 pretrain and 4
      imitation steps, 2 RL iterations and 1 from a random π₂, 4 eval arms
-     of 4 clips, the CI eval with 2 draws): every stage's launch counts and
-     the record's keys as the JAX `run` writes them; then `python -m
-     rovr_torch pretrain`, `imitate` and `pipeline` as subprocesses.
+     of 4 clips, the CI eval with 2 draws, 2 iterations of stage 5 (PPO on
+     π₁: 60 K1, 62 K2, 20 K3, 20 K4 each) and its random-π₁ control):
+     every stage's launch counts and the record's keys as the JAX `run`
+     writes them; then `python -m rovr_torch pretrain`, `imitate` and
+     `pipeline` as subprocesses;
+ 20. config-5 train steps with the frame-selection policy π₁ (use_policy1,
+     ppo_policy1: PolicyNet1 32-256 on the 256^2 canvas, a 4096 -> 64 head,
+     the ActionLSTM at hidden 1024) on phase 9's clips: a warm-up, then
+     timed steps; each must launch exactly what a step without π₁ does
+     (192 K1, 150 K2, 20 K3, 20 K4), give finite metrics with
+     PPO/actor1_loss, PPO/critic1_loss and Episode/coverage in (0, 1],
+     targets in [0, 64), move actor1, critic1, actor2 and critic2 and leave
+     the LSTM, the UNet and the VideoProcessor as they were; sec/step beside
+     phase 10's, peak memory; one step under torch.profiler: the device
+     time of π₁'s ranges (`rovr/pi1_act`, `rovr/pi1_lstm`, `rovr/pi1_ppo`),
+     their share, the idle share;
+ 21. `rl.run` with π₁ at config 5: 2 iterations with a checkpoint each
+     (the same launch counts), the newest restored bit for bit (π₁'s
+     parameters and both new Adam states included), one resumed iteration
+     continuing state.step; the checkpoint's bytes beside phase 12's; then
+     `python -m rovr_torch rl --ppo_policy1 --iterations 1` at Config() as
+     a subprocess (exit 0, PPO/actor1_loss in its metrics.jsonl).
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the rovr_torch package
 beside this file; without either it exits non-zero and prints no result.
 Writes the full record to chiprun_out/chip_smoke.json; the run directories
-of phases 12-19 go under chiprun_out/ too, their checkpoints deleted at the end.
+of phases 12-21 go under chiprun_out/ too, their checkpoints deleted at the end.
 """
 
 from __future__ import annotations
 
+import atexit
 import glob
 import json
 import math
@@ -404,15 +424,24 @@ def phase_k1_backward(torch, conv, F):
     return rows, max_err
 
 
-def kernels_run(torch, fn):
-    """Names of the device kernels one call of `fn` launches (torch.profiler)."""
+def kernels_run(torch, fn, captures: int = 3):
+    """Names of the device kernels one call of `fn` launches (torch.profiler).
+    The device is synchronized before each capture, so no earlier work is in
+    flight when tracing starts; a trace with no kernel at all is not an
+    observation and `fn` runs again under a new capture, up to `captures`
+    times; a trace that stays empty raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(captures):
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ran = [e.key for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0]
+        if ran:
+            return ran
+    raise AssertionError(f"the profiler saw no kernel in {captures} captures")
 
 
 def host_us(torch, fn, n: int = 1000) -> float:
@@ -717,13 +746,7 @@ def phase_profile(torch, infer, cfg, state, mods, u8, out_dir):
             pass
         wall_ms = (time.time() - t0) * 1e3
     prof.export_chrome_trace(os.path.join(out_dir, "serving_trace.json"))
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0)
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append(dict(kernel=e.key[:120], ms=dev_us / 1e3, count=e.count))
-    rows.sort(key=lambda r: -r["ms"])
-    busy_ms = sum(r["ms"] for r in rows)
+    rows, busy_ms = _profile_rows(torch, prof.key_averages())
     if busy_ms == 0:
         log("profile: the profiler saw no device time (not measured)")
         return dict(wall_ms=wall_ms, device_ms=None)
@@ -986,13 +1009,7 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
         rl.train_step(state, mods, cfg, video, org, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0)
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append(dict(kernel=e.key[:120], ms=dev_us / 1e3, count=e.count))
-    rows.sort(key=lambda r: -r["ms"])
-    busy_ms = sum(r["ms"] for r in rows)
+    rows, busy_ms = _profile_rows(torch, prof.key_averages())
     if busy_ms == 0:
         log("train profile: the profiler saw no device time (not measured)")
         return dict(wall_ms=wall_ms, device_ms=None)
@@ -1226,7 +1243,7 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
         evaluate.eval_step(state, raft, mods, cfg, batch, FLOW_SIZE)
         torch.cuda.synchronize()
         step_wall_ms = (time.time() - t1) * 1e3
-    rows, busy_ms = _profile_rows(torch, prof)
+    rows, busy_ms = _profile_rows(torch, prof.key_averages())
     org = batch[1].float() * (1.0 / 255.0)
     with torch.no_grad():
         phi_ms = profiled_ms(torch, lambda: total_flow_magnitude(
@@ -1270,6 +1287,209 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     log(f"config-5 run_ci (1 batch, 2 draws): {ci_s:.2f} s, launches {ci_counts}, peak "
         f"{res['ci_peak_mem_gb']:.2f} GB")
     del mods
+    return res
+
+
+PI1_RANGES = ("rovr/pi1_act", "rovr/pi1_lstm", "rovr/pi1_ppo")  # rl.py's profiler ranges
+
+
+def config5_pi1(cfg):
+    """Config 5 with the frame-selection policy trained: use_policy1 and
+    ppo_policy1 (π₁ channels 32-256 on the 256^2 canvas, a 4096 -> 64
+    head, the ActionLSTM at hidden 1024 with a 256^2 token)."""
+    import dataclasses
+
+    return cfg.replace(rl=dataclasses.replace(cfg.rl, use_policy1=True, ppo_policy1=True))
+
+
+def phase_train5_pi1(torch, conv, attention, rl, cfg, video, org, masks, train5):
+    """Config-5 train steps with π₁ (use_policy1, ppo_policy1): one warm-up,
+    then TRAIN_STEPS timed steps, each launching exactly what a step
+    without π₁ does; then one step under torch.profiler, π₁'s ranges'
+    device time and share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = config5_pi1(cfg)
+    mods = rl.make_modules(cfg, device=video.device)
+    state = rl.init_state(cfg, mods, seed=0)
+    gen = torch.Generator(device=video.device).manual_seed(20)
+    targets = []
+    real_rollout = rl.rollout
+
+    def rollout(*a, **kw):   # keep each step's targets (π₁'s actions)
+        out = real_rollout(*a, **kw)
+        targets.append(out.traj.target_idx)
+        return out
+
+    rl.rollout = rollout
+    frozen = ("lstm", "local_net", "vp")
+    s_frames = cfg.rl.vid_length
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are the π₁ train path's
+    times, steps = [], []
+    try:
+        for i in range(1 + TRAIN_STEPS):
+            before = _counts(conv, attention)
+            t0 = time.time()
+            new, metrics, recon = rl.train_step(state, mods, cfg, video, org,
+                                                generator=gen, masks=masks)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            after = _counts(conv, attention)
+            step_counts = {k: after[k] - before[k] for k in after}
+            if step_counts != TRAIN_LAUNCHES:
+                raise AssertionError(f"π₁ train step {i} launched {step_counts}, "
+                                     f"expected {TRAIN_LAUNCHES}")
+            m = _finite_metrics(metrics)
+            if not ({"PPO/actor1_loss", "PPO/critic1_loss"} <= set(m)
+                    and 0 < m["Episode/coverage"] <= 1):
+                raise AssertionError(f"π₁ train step {i} metrics {m}")
+            tgt = targets[-1]
+            if not ((tgt >= 0) & (tgt < s_frames)).all():
+                raise AssertionError(f"π₁ targets out of [0, {s_frames})")
+            moved = {f: _moved(getattr(new, f"{f}_params"), getattr(state, f"{f}_params"))
+                     for f in ("actor1", "critic1", "actor2", "critic2")}
+            still = {f: _moved(getattr(new, f"{f}_params"), getattr(state, f"{f}_params"))
+                     for f in frozen}
+            if not all(v > 0 and math.isfinite(v) for v in moved.values()) or any(
+                    still.values()):
+                raise AssertionError(f"π₁ train step {i}: moved {moved}, frozen {still}")
+            if recon.shape != video.shape or not torch.isfinite(recon).all():
+                raise AssertionError("π₁ train step reconstruction not finite / wrong shape")
+            steps.append(dict(seconds=times[-1], metrics=m, moved=moved,
+                              distinct_targets=[int(x) for x in
+                                                torch.nn.functional.one_hot(tgt, s_frames)
+                                                .any(0).sum(1).tolist()]))
+            log(f"config-5 π₁ train step {i}: {times[-1]:.3f} s, launches {step_counts}, "
+                f"metrics {m}, max|param change| {moved}")
+            state = new
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            rl.train_step(state, mods, cfg, video, org, generator=gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+    finally:
+        rl.rollout = real_rollout
+    avgs = prof.key_averages()
+    rows, busy_ms = _profile_rows(torch, avgs)
+    ranges = _range_times(torch, avgs, PI1_RANGES)
+    if busy_ms == 0 or set(ranges) != set(PI1_RANGES) or any(
+            r["device_ms"] is None for r in ranges.values()):
+        log(f"π₁ profile: device busy {busy_ms} ms, ranges {sorted(ranges)} (not measured)")
+        prof_res = dict(wall_ms=wall_ms, device_ms=None, ranges=ranges)
+    else:
+        pi1_ms = sum(r["device_ms"] for r in ranges.values())
+        span_ms = sum(r["span_ms"] or 0.0 for r in ranges.values())
+        prof_res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                        ranges=ranges, pi1_device_ms=pi1_ms, pi1_share=pi1_ms / busy_ms,
+                        pi1_span_ms=span_ms, top=rows[:25])
+        log(f"profile of one config-5 π₁ train step: wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms (idle share {prof_res['idle_share']:.3f}); π₁ ranges (device "
+            "ms of their kernels, share of the busy time; span on the device timeline): "
+            + ", ".join(f"{k} {r['device_ms']:.1f} ({r['device_ms'] / busy_ms:.3f}, "
+                        f"x{r['count']}; span {r['span_ms']})" for k, r in ranges.items())
+            + f"; π₁ in all {pi1_ms:.1f} ms ({prof_res['pi1_share']:.3f}; the backward's "
+            f"kernels run on autograd's thread, outside these sums), spans {span_ms:.1f} ms")
+        for r in rows[:25]:
+            log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
+    sec = _median(times[1:])
+    b = video.shape[0]
+    res = dict(batch=b, vid_length=s_frames, steps=steps, warmup_s=times[0],
+               sec_per_step_each=times[1:], sec_per_step=sec,
+               frames_per_sec=b * cfg.rl.time_steps / sec,
+               sec_per_step_without_pi1=train5["sec_per_step"],
+               launches_per_step=TRAIN_LAUNCHES, peak_mem_gb=peak, profile=prof_res,
+               state_step=state.step)
+    log(f"config-5 π₁ train: {sec:.4f} s/step (median of {TRAIN_STEPS}; warm-up "
+        f"{times[0]:.2f} s) against {train5['sec_per_step']:.4f} s without π₁ (phase 10, "
+        f"this run); launches {TRAIN_LAUNCHES} per step; peak {peak:.2f} GB")
+    return res
+
+
+PI1_RUN_ITERS = 2   # rl.run iterations with π₁ at config 5
+
+
+def phase_rl_run5_pi1(torch, conv, attention, rl, checkpoint, cfg, source, here, out_dir,
+                      rl_run5):
+    """`rl.run` with π₁ at config 5: PI1_RUN_ITERS iterations with a
+    checkpoint each, the newest restored bit for bit (π₁'s parameters and
+    both new Adam states included), one resumed iteration; then `python -m
+    rovr_torch rl --ppo_policy1 --iterations 1` at Config()."""
+    import dataclasses
+
+    run_root = os.path.join(out_dir, "smoke_rl_run_pi1")
+    shutil.rmtree(run_root, ignore_errors=True)
+    cfg = config5_pi1(cfg)
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, run_dir=run_root, seed=0,
+                                              checkpoint_every=1, log_every=1,
+                                              restore_from=None))
+    dev = source.batch[0].device
+    marks = []
+
+    def log_cb(i, metrics):
+        torch.cuda.synchronize()
+        marks.append((time.time(), _counts(conv, attention)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are this run's
+    t0 = time.time()
+    state = rl.run(cfg, iterations=PI1_RUN_ITERS, log_cb=log_cb, source=source, device=dev)
+    total_s = time.time() - t0
+    prev, iter_s, prev_t = {k: 0 for k in TRAIN_LAUNCHES}, [], t0
+    for i, (t, c) in enumerate(marks):
+        d = {k: c[k] - prev[k] for k in c}
+        if d != TRAIN_LAUNCHES:
+            raise AssertionError(f"π₁ rl.run iteration {i} launched {d}")
+        iter_s.append(t - prev_t)
+        prev, prev_t = c, t
+    if state.step != PI1_RUN_ITERS or state.actor1_opt["step"] != \
+            PI1_RUN_ITERS * cfg.rl.n_updates_per_ppo:
+        raise AssertionError(f"π₁ rl.run: step {state.step}, actor1 Adam "
+                             f"{state.actor1_opt['step']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    recs, _ = _run_records(run_root, "rovr_rl")
+    tags = {r["tag"] for r in recs}
+    if not {"PPO/actor1_loss", "PPO/critic1_loss", "Episode/coverage"} <= tags:
+        raise AssertionError(f"π₁ rl.run metrics: tags {sorted(tags)}")
+    ck = checkpoint.latest_checkpoint_dir(run_root, "rovr_rl")
+    steps = sorted(os.listdir(ck))
+    restored = checkpoint.CheckpointManager(ck).restore(template=state)
+    if steps != [str(i) for i in range(PI1_RUN_ITERS)] or not _same_tree(restored, state) \
+            or restored.actor1_opt is None or restored.lstm_params is None:
+        raise AssertionError(f"π₁ checkpoint {ck} ({steps}) does not restore the state")
+    ck_bytes = os.path.getsize(os.path.join(ck, steps[-1], "state.pt"))
+    resume = cfg.replace(run=dataclasses.replace(cfg.run, restore_from=ck))
+    _zero_counts(conv, attention)
+    t1 = time.time()
+    resumed = rl.run(resume, iterations=1, source=source, device=dev)
+    resume_s = time.time() - t1
+    counts = _counts(conv, attention)
+    if resumed.step != state.step + 1 or counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"π₁ resumed run: step {resumed.step} after {state.step}, "
+                             f"launches {counts}")
+    _drop_checkpoints(run_root)
+
+    sub_root = os.path.join(run_root, "cli")
+    _, cli_s = python_m(here, "rl", "--ppo_policy1", "--iterations", "1", "--run_dir",
+                        sub_root)
+    cli_recs, _ = _run_records(sub_root, "rovr_rl")
+    if "PPO/actor1_loss" not in {r["tag"] for r in cli_recs}:
+        raise AssertionError("python -m rovr_torch rl --ppo_policy1: no PPO/actor1_loss")
+    _drop_checkpoints(sub_root)
+    res = dict(iterations=PI1_RUN_ITERS, iter_s=iter_s, total_s=total_s, resume_s=resume_s,
+               checkpoint_bytes=ck_bytes, checkpoint_bytes_without_pi1=
+               rl_run5["checkpoint_bytes"], peak_mem_gb=peak, state_step=state.step,
+               resumed_step=resumed.step, cli_s=cli_s, metric_tags=sorted(tags))
+    log(f"config-5 π₁ rl.run: {PI1_RUN_ITERS} iterations in {total_s:.2f} s (per iteration "
+        + ", ".join(f"{x:.3f}" for x in iter_s) + f" s), launches {TRAIN_LAUNCHES} each; "
+        f"checkpoint {ck_bytes / 1e6:.1f} MB (without π₁, phase 12: "
+        f"{rl_run5['checkpoint_bytes'] / 1e6:.1f} MB), restored bit for bit; resumed to "
+        f"step {resumed.step} in {resume_s:.2f} s; peak {peak:.2f} GB; python -m rovr_torch "
+        f"rl --ppo_policy1 (Config()) {cli_s:.2f} s, exit 0")
     return res
 
 
@@ -1325,10 +1545,16 @@ def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
 SOURCE_BATCHES = 3    # timed device-source batches per scheme
 PRETRAIN_STEPS = 4    # pretrain_local.run steps at Config()
 IMITATION_STEPS = 3   # imitation.run steps per configuration
-JAX_PIPELINE_KEYS = {  # the record rovr_tpu/train/pipeline.run writes (stages 1-4b, 3b)
+JAX_PIPELINE_KEYS = {  # the record rovr_tpu/train/pipeline.run writes (stages 1-5, 3b)
     "config", "pretrain", "imitation", "rl", "rl_from_random", "eval_trained",
     "eval_warm_start_only", "eval_random_policy", "eval_ppo_from_random", "ppo_ablation",
-    "eval_ci", "ablation_ci", "wall_seconds",
+    "eval_ci", "ablation_ci", "wall_seconds", "policy1", "policy1_summary",
+    "policy1_control",
+}
+JAX_POLICY1_SUMMARY_KEYS = {  # its policy1_summary
+    "coverage_first10", "coverage_last10", "return_first10", "return_last10",
+    "coverage_random_expected", "coverage_random_measured", "separates_from_random",
+    "verdict",
 }
 
 
@@ -1390,12 +1616,40 @@ def phase_source(torch, Config, device_synthetic, corruption, synthetic):
     return res
 
 
-def _profile_rows(torch, prof):
+def _profile_rows(torch, avgs):
+    """Device rows of a trace's `key_averages()` by time, and their sum
+    (the device's busy time). A record_function range also shows as a
+    device row (its span on the device's timeline, `is_user_annotation`);
+    those are left out, or the busy time would count their kernels twice.
+    (Take `key_averages()` once per trace: each call walks every event.)"""
     rows = sorted((dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
-                   for e in prof.key_averages()
+                   for e in avgs
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and getattr(e, "self_device_time_total", 0) > 0), key=lambda r: -r["ms"])
     return rows, sum(r["ms"] for r in rows)
+
+
+def _range_times(torch, avgs, names):
+    """{name: {count, device_ms, span_ms, host_ms}} of record_function
+    ranges: device_ms sums the device time of the kernels the range's ops
+    launched from its own thread (a backward inside the range runs on
+    autograd's device thread, so its kernels are not counted), span_ms is
+    the range's extent on the device's timeline (its device-side
+    annotation: every kernel in it, gaps included; None where the trace has
+    none)."""
+    out = {}
+    for e in avgs:
+        if e.key not in names:
+            continue
+        r = out.setdefault(e.key, dict(count=e.count, device_ms=None, span_ms=None,
+                                       host_ms=None))
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            r["span_ms"] = e.self_device_time_total / 1e3
+        else:
+            r["device_ms"] = getattr(e, "device_time_total", 0) / 1e3
+            r["host_ms"] = e.cpu_time_total / 1e3
+    return out
 
 
 def phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint, out_dir):
@@ -1469,14 +1723,15 @@ def phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint, o
         pretrain_local.train_step(st, gen, mods, data, b)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t1) * 1e3
-    rows, busy_ms = _profile_rows(torch, prof)
-    names = {e.key for e in prof.key_averages()}
+    avgs = prof.key_averages()
+    rows, busy_ms = _profile_rows(torch, avgs)
+    names = {e.key for e in avgs}
     if "fused_conv3x3_plain" in names:
         raise AssertionError("the pretrain step reached fused_conv3x3_plain on the card")
     if "fused_conv3x3_backward" not in names:
         raise AssertionError("the profiler saw no fused_conv3x3_backward range")
-    bwd_range = [e for e in prof.key_averages() if e.key == "fused_conv3x3_backward"][0]
-    bwd_dev_ms = getattr(bwd_range, "device_time_total", 0) / 1e3
+    bwd_range = _range_times(torch, avgs, {"fused_conv3x3_backward"})["fused_conv3x3_backward"]
+    bwd_dev_ms = bwd_range["device_ms"] or 0.0
     k1_ms = sum(r["ms"] for r in rows if "conv3x3_kernel" in r["kernel"])
     grad_convs = [r for r in rows if "dgrad" in r["kernel"] or "wgrad" in r["kernel"]]
     res = dict(batch=b, steps=PRETRAIN_STEPS, total_s=total_s, iter_s=iter_s,
@@ -1486,7 +1741,7 @@ def phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint, o
                warmup_s=times[0], peak_mem_gb=peak, wall_ms=wall_ms, device_ms=busy_ms,
                idle_share=(1 - busy_ms / wall_ms) if busy_ms else None, k1_ms=k1_ms,
                k1_share=(k1_ms / busy_ms) if busy_ms else None,
-               k1_backward_range_device_ms=bwd_dev_ms, k1_backward_range_calls=bwd_range.count,
+               k1_backward_range_device_ms=bwd_dev_ms, k1_backward_range_calls=bwd_range["count"],
                cudnn_grad_conv_ms=sum(r["ms"] for r in grad_convs),
                cudnn_grad_conv_launches=sum(r["count"] for r in grad_convs), top=rows[:25])
     log(f"pretrain at Config() (batch {b}): {PRETRAIN_STEPS} steps of pretrain_local.run in "
@@ -1496,7 +1751,7 @@ def phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint, o
         f"train_step {res['sec_per_step']:.4f} s/step (median of 3), peak {peak:.2f} GB")
     log(f"profile of one pretrain step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"(idle share {res['idle_share'] or 0:.3f}); K1 forward {k1_ms:.2f} ms "
-        f"({res['k1_share'] or 0:.3f}); K1 backward (cuDNN, {bwd_range.count} calls) "
+        f"({res['k1_share'] or 0:.3f}); K1 backward (cuDNN, {bwd_range['count']} calls) "
         f"{bwd_dev_ms:.2f} ms; every cuDNN dgrad/wgrad kernel {res['cudnn_grad_conv_ms']:.2f} "
         f"ms x{res['cudnn_grad_conv_launches']}; fused_conv3x3_plain never ran")
     for r in rows[:25]:
@@ -1615,7 +1870,8 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
     try:
         rec = pipeline.run(cfg, pretrain_steps=4, imitation_steps=4, rl_iterations=2,
                            ppo_from_random_iterations=1, eval_videos=4, eval_ci_clips=4,
-                           eval_ci_draws=2, out_path=out_path, device="cuda")
+                           eval_ci_draws=2, out_path=out_path, device="cuda",
+                           policy1_iterations=2)
     finally:
         for (mod, fn_name), real in originals.items():
             setattr(mod, fn_name, real)
@@ -1632,6 +1888,7 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
             ("rl.run", rl_counts(2)), ("rl.run", rl_counts(1))]
     want += [("evaluate.run", dict(zero, K1=3 * 2 * t_steps, K2=depth * t_steps))] * 4
     want += [("evaluate.run_ci", dict(zero, K1=3 * 3 * t_steps, K2=depth * 2 * t_steps))] * 4
+    want += [("rl.run", rl_counts(2))]   # stage 5: PPO on π₁ adds no port kernel
     got = [(name, counts) for name, counts, _, _ in stages]
     if got != want:
         raise AssertionError(f"pipeline stage launches {got}, expected {want}")
@@ -1639,6 +1896,15 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
         written = json.load(f)
     if set(rec) != JAX_PIPELINE_KEYS or set(written) != JAX_PIPELINE_KEYS:
         raise AssertionError(f"pipeline record keys {sorted(rec)}")
+    ctl = rec["policy1_control"]
+    logged = len(range(0, 2, cfg.run.log_every))   # rows of stage 5's 2 iterations
+    if (set(rec["policy1_summary"]) != JAX_POLICY1_SUMMARY_KEYS
+            or len(rec["policy1"]) != logged
+            or any(set(ctl[k]) != {"trained", "random_policy1", "delta"}
+                   for k in ("coverage", "return"))
+            or not all("PPO/actor1_loss" in r for r in rec["policy1"])):
+        raise AssertionError(f"pipeline stage 5 record: {rec['policy1_summary']}, "
+                             f"{sorted(ctl)}")
     flat = [v for k in ("eval_trained", "eval_random_policy") for v in rec[k].values()]
     if not all(math.isfinite(v) for v in flat) or not rec["pretrain"] or not rec["rl"]:
         raise AssertionError("pipeline record: empty curves or non-finite eval metrics")
@@ -1646,8 +1912,11 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
     res = dict(total_s=total_s, stages=[dict(stage=n, launches=c, seconds=t)
                                         for n, c, t, _ in stages],
                eval_trained=rec["eval_trained"], ppo_ablation=rec["ppo_ablation"],
-               ci_masked_psnr=rec["ablation_ci"]["greedy"]["masked_psnr_agentic"])
-    log(f"pipeline (default_config(20, 4), 4 + 4 steps, 2 + 1 RL iterations, 4 eval arms): "
+               ci_masked_psnr=rec["ablation_ci"]["greedy"]["masked_psnr_agentic"],
+               policy1_summary=rec["policy1_summary"],
+               policy1_control_n=rec["policy1_control"]["n_clips"])
+    log(f"pipeline (default_config(20, 4), 4 + 4 steps, 2 + 1 RL iterations, 4 eval arms, "
+        f"2 π₁ iterations and the random-π₁ control): "
         f"{total_s:.1f} s; stages " + "; ".join(
             f"{n} {t:.1f} s {c}" for n, c, t, _ in stages))
 
@@ -1724,21 +1993,33 @@ def main() -> int:
         log(f"  {kid} TMA kernel dynamic shared memory (bytes): "
             f"{ptxas[f'{kid}_tma_dynamic_smem']}")
 
-    rows, k1_err = phase_k1(torch, conv, F)
-    k1_bwd, k1_bwd_err = phase_k1_backward(torch, conv, F)
-    attn, attn_err = phase_attention(torch, attention, F)
-    unet = phase_unet(torch, conv, LocalNetUNet, flax_init_state)
-    serving, mods, state, cfg, u8 = phase_serving(torch, np, conv, attention, Config,
-                                                  rl, infer, synthetic)
+    phase_s = {}   # host seconds of each phase, for the record
+
+    def timed(fn, *args):
+        t = time.time()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.time() - t
+        return out
+
+    rows, k1_err = timed(phase_k1, torch, conv, F)
+    k1_bwd, k1_bwd_err = timed(phase_k1_backward, torch, conv, F)
+    attn, attn_err = timed(phase_attention, torch, attention, F)
+    unet = timed(phase_unet, torch, conv, LocalNetUNet, flax_init_state)
+    serving, mods, state, cfg, u8 = timed(phase_serving, torch, np, conv, attention, Config,
+                                          rl, infer, synthetic)
     out_dir = os.path.join(here, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    profile = phase_profile(torch, infer, cfg, state, mods, u8, out_dir)
-    rewards = phase_rollout_rewards(torch, np, conv, rl, synthetic, mods, state, cfg)
+    # a phase that fails leaves its run's checkpoints (hundreds of MB at
+    # config 5); drop them at exit too, so a failed run keeps only its logs
+    atexit.register(lambda: [shutil.rmtree(ck, ignore_errors=True) for ck in glob.glob(
+        os.path.join(out_dir, "**", "checkpoints"), recursive=True)])
+    profile = timed(phase_profile, torch, infer, cfg, state, mods, u8, out_dir)
+    rewards = timed(phase_rollout_rewards, torch, np, conv, rl, synthetic, mods, state, cfg)
     del mods, state
     torch.cuda.empty_cache()
 
     cfg5 = config5(Config)
-    policy = phase_policy(torch, attention, cfg5, flax_init_state)
+    policy = timed(phase_policy, torch, attention, cfg5, flax_init_state)
     t0 = time.time()
     mods5 = rl.make_modules(cfg5, device="cuda")
     state5 = rl.init_state(cfg5, mods5, seed=0)
@@ -1746,33 +2027,39 @@ def main() -> int:
     setup5_s = time.time() - t0
     log(f"config-5 set-up (modules, init, 8 x 64 clips): {setup5_s:.2f} s, of which the "
         f"host synthetic source {source5_s:.2f} s for the batch of clips")
-    serving5 = phase_serving5(torch, np, conv, attention, infer, cfg5, state5, mods5, u8_5)
-    train5, state5 = phase_train5(torch, conv, attention, rl, cfg5, state5, mods5,
-                                  video5, org5)
-    split5 = phase_split_train(torch, rl, cfg5, state5, mods5, video5, org5)
-    profile5 = phase_profile_train(torch, rl, cfg5, state5, mods5, video5, org5)
+    serving5 = timed(phase_serving5, torch, np, conv, attention, infer, cfg5, state5, mods5, u8_5)
+    train5, state5 = timed(phase_train5, torch, conv, attention, rl, cfg5, state5, mods5,
+                           video5, org5)
+    split5 = timed(phase_split_train, torch, rl, cfg5, state5, mods5, video5, org5)
+    profile5 = timed(phase_profile_train, torch, rl, cfg5, state5, mods5, video5, org5)
     del mods5
     torch.cuda.empty_cache()
     source = ClipSource(video5, org5, masks5)
-    rl_run5, state_run5 = phase_rl_run5(torch, conv, attention, rl, checkpoint, cfg5,
-                                        source, out_dir)
+    rl_run5, state_run5 = timed(phase_rl_run5, torch, conv, attention, rl, checkpoint, cfg5,
+                                source, out_dir)
     torch.cuda.empty_cache()
-    spatio5 = phase_spatio5(torch, conv, attention, rl, cfg5, video5, org5, masks5)
+    spatio5 = timed(phase_spatio5, torch, conv, attention, rl, cfg5, video5, org5, masks5)
     torch.cuda.empty_cache()
-    eval5 = phase_eval5(torch, conv, attention, evaluate, rl, cfg5, state_run5, source,
-                        out_dir)
+    eval5 = timed(phase_eval5, torch, conv, attention, evaluate, rl, cfg5, state_run5, source,
+                  out_dir)
     torch.cuda.empty_cache()
-    cli_res = phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir)
+    cli_res = timed(phase_cli, torch, conv, attention, cli, checkpoint, here, out_dir)
     torch.cuda.empty_cache()
-    source = phase_source(torch, Config, device_synthetic, corruption, synthetic)
+    source = timed(phase_source, torch, Config, device_synthetic, corruption, synthetic)
     torch.cuda.empty_cache()
-    pretrain = phase_pretrain(torch, conv, attention, Config, pretrain_local, checkpoint,
-                              out_dir)
+    pretrain = timed(phase_pretrain, torch, conv, attention, Config, pretrain_local, checkpoint,
+                     out_dir)
     torch.cuda.empty_cache()
-    imitate = phase_imitation(torch, conv, attention, Config, imitation, pipeline, out_dir)
+    imitate = timed(phase_imitation, torch, conv, attention, Config, imitation, pipeline, out_dir)
     torch.cuda.empty_cache()
-    pipe = phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, rl,
-                          evaluate, here, out_dir)
+    pipe = timed(phase_pipeline, torch, conv, attention, pipeline, pretrain_local, imitation, rl,
+                 evaluate, here, out_dir)
+    torch.cuda.empty_cache()
+    train5_pi1 = timed(phase_train5_pi1, torch, conv, attention, rl, cfg5, video5, org5, masks5,
+                       train5)
+    torch.cuda.empty_cache()
+    rl_run5_pi1 = timed(phase_rl_run5_pi1, torch, conv, attention, rl, checkpoint, cfg5,
+                        ClipSource(video5, org5, masks5), here, out_dir, rl_run5)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -1857,6 +2144,8 @@ def main() -> int:
         row["launches_per_imitation_step"] = {
             name: r["launches_per_step"][kid] for name, r in imitate.items()}
     kernels[0]["backward_calls_per_pretrain_step"] = pretrain["launches_per_step"]["K1_backward"]
+    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):   # phase 20's, per step
+        row["launches_per_pi1_step"] = train5_pi1["launches_per_step"][kid]
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
                   serving=serving,
@@ -1865,10 +2154,12 @@ def main() -> int:
                   train5=train5, split_train5=split5, profile_train5=profile5,
                   rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
                   source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
+                  train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, phase_seconds=phase_s,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"chip_smoke: all phases passed in {record['seconds']:.1f} s")
+    log(f"chip_smoke: all phases passed in {record['seconds']:.1f} s (nvcc {build_s:.1f} s; "
+        + ", ".join(f"{k[6:]} {v:.1f}" for k, v in phase_s.items()) + ")")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ falls back. `convert` is not ported yet and says so.
 
 Flags whose machinery is not ported raise NotImplementedError: folder
 datasets (`--root_folder` naming a directory), `--warm_start` (it reads the
-JAX `convert`'s Orbax output), `--use_policy1`/`--ppo_policy1` and
-`--data_parallel` > 1; each error names its ROADMAP.md item.
+JAX `convert`'s Orbax output) and `--data_parallel` > 1; each error names
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -86,9 +86,9 @@ def rl_config(argv: List[str]):
     p.add_argument("--n_updates_per_ppo", type=int, default=5)
     p.add_argument("--batch_size", type=int, default=1, help="clips per step")
     p.add_argument("--use_policy1", action="store_true",
-                   help="the frame-selection policy + LSTM path (not ported)")
+                   help="the frame-selection policy pi1 + LSTM picks each target")
     p.add_argument("--ppo_policy1", action="store_true",
-                   help="also train pi1/V1 with PPO (not ported)")
+                   help="also train pi1/V1 with PPO (implies --use_policy1)")
     p.add_argument("--context_policy", choices=("canvas", "attention"), default="canvas",
                    help="canvas=PolicyNet2, attention=transformer over frame tokens")
     p.add_argument("--sequential_baseline", action="store_true",
@@ -115,10 +115,6 @@ def rl_config(argv: List[str]):
 def cmd_rl(argv: List[str]) -> int:
     """RL training."""
     cfg, args = rl_config(argv)
-    if args.use_policy1 or args.ppo_policy1:
-        raise NotImplementedError(
-            "--use_policy1/--ppo_policy1: the pi1 path is not in the port yet "
-            "(ROADMAP.md Queue 1 item 5)")
     _check_warm_start(args)
     _check_dataset(args)
     from rovr_torch.train import rl
@@ -185,7 +181,8 @@ def pipeline_config(argv: List[str]):
                    help="teacher accuracy saturates near step 400 at the default scale")
     p.add_argument("--rl_iterations", type=int, default=300)
     p.add_argument("--policy1_iterations", type=int, default=0,
-                   help="stage 5, PPO on pi1 (not ported: > 0 raises)")
+                   help="stage 5: PPO on pi1 for this many iterations (0 = skip), "
+                        "then the trained pi1 against a random one")
     p.add_argument("--ppo_from_random_iterations", type=int, default=0,
                    help="stage 3b: also PPO-train a random pi2 and evaluate it")
     p.add_argument("--eval_videos", type=int, default=20)

@@ -10,7 +10,11 @@ compute dtype, as flax's `dtype=` does.
 
 BatchStatNorm keeps the JAX package's semantics: it normalizes by the
 CURRENT batch statistics (train-mode BatchNorm forever, biased variance) and
-holds no running state.
+holds no running state. Its backward is written out (`_BatchStatNormFn`): it
+saves the input in its own dtype and the per-channel mean and rstd, where
+autograd of the f32 formula would save three f32 copies of the activation
+(at PolicyNet1's PPO batch, 512 canvases of 256^2, each is 4.3 GB per
+32-channel map).
 """
 
 from __future__ import annotations
@@ -25,12 +29,50 @@ from torch import nn
 from rovr_torch.ops import conv as k1
 
 
+class _BatchStatNormFn(torch.autograd.Function):
+    """y = (x - mean) * rsqrt(var + eps) * weight + bias over `dims` (f32
+    math, the forward exactly as BatchStatNorm's formula), saving x in its
+    own dtype and the f32 mean and rstd; the backward recomputes
+    xhat from them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, dims, out_dtype):
+        x32 = x.float()
+        mean = x32.mean(dims, keepdim=True)
+        var = (x32 * x32).mean(dims, keepdim=True) - mean * mean
+        rstd = torch.rsqrt(var + eps)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (x32 - mean) * rstd * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.dims = dims
+        return y.to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, mean, rstd = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        pdims = (0,) + tuple(range(2, x.dim()))    # every axis but channels
+        xhat = x.float().sub_(mean).mul_(rstd)
+        g = grad.float()
+        gw = (g * xhat).sum(pdims) if ctx.needs_input_grad[1] else None
+        gb = g.sum(pdims) if ctx.needs_input_grad[2] else None
+        gx = None
+        if ctx.needs_input_grad[0]:
+            g.mul_(weight.view(shape))              # d/d xhat
+            m1 = g.mean(ctx.dims, keepdim=True)
+            m2 = (g * xhat).mean(ctx.dims, keepdim=True)
+            gx = g.sub_(m1).sub_(xhat.mul_(m2)).mul_(rstd).to(x.dtype)
+        return gx, gw, gb, None, None, None
+
+
 class BatchStatNorm(nn.Module):
     """Normalize by current batch statistics over every axis but channels
     (axis 1): var = E[x^2] - E[x]^2, eps 1e-5, f32 math.
 
     `per_sample=True` leaves the batch axis out of the statistics, so a
     sample's output does not depend on its batchmates."""
+
+    init_as_constructed = True   # flax_init_state: ones and zeros
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None, per_sample: bool = False):
@@ -49,13 +91,8 @@ class BatchStatNorm(nn.Module):
         dims = tuple(range(2, x.dim()))
         if not self.per_sample:
             dims = (0,) + dims
-        x32 = x.float()
-        mean = x32.mean(dims, keepdim=True)
-        var = (x32 * x32).mean(dims, keepdim=True) - mean * mean
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) \
-            + self.bias.view(shape)
-        return y.to(x.dtype if self.dtype is None else self.dtype)
+        return _BatchStatNormFn.apply(x, self.weight, self.bias, self.eps, dims,
+                                      x.dtype if self.dtype is None else self.dtype)
 
 
 def max_pool(
@@ -123,6 +160,41 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype or torch.promote_types(x.dtype, torch.float32)
         return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+
+
+class ConvBlock(nn.Module):
+    """conv3x3 (padding 1) -> BatchStatNorm -> ReLU, NCHW; f32 params,
+    compute in `dtype` (None: the input's). Submodule names are flax's
+    (`Conv_0`, `BatchStatNorm_0`), so JAX weights map by rule."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None, per_sample_stats: bool = False):
+        super().__init__()
+        self.Conv_0 = Conv2d(in_features, features, 3, padding=1, compute_dtype=dtype)
+        self.BatchStatNorm_0 = BatchStatNorm(features, dtype=dtype, per_sample=per_sample_stats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchStatNorm_0(self.Conv_0(x)))
+
+
+class UpConvBlock(nn.Module):
+    """2x2 stride-2 transposed conv (output 2x the input) -> BatchStatNorm
+    -> ReLU, NCHW, as ConvBlock (`ConvTranspose_0`, `BatchStatNorm_0`)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None, per_sample_stats: bool = False):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose2d(in_features, features, 2, stride=2,
+                                               compute_dtype=dtype)
+        self.BatchStatNorm_0 = BatchStatNorm(features, dtype=dtype, per_sample=per_sample_stats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchStatNorm_0(self.ConvTranspose_0(x)))
+
+
+class RecurrentLinear(nn.Linear):
+    """A recurrent kernel of an LSTM cell: nn.Linear that flax_init_state
+    draws orthogonal, as flax's `recurrent_kernel_init`."""
 
 
 class CanvasConv3x3(nn.Module):
@@ -201,6 +273,7 @@ class LayerNorm(nn.Module):
     promote it), parameters `weight` (flax `scale`) and `bias`."""
 
     eps = 1e-6
+    init_as_constructed = True   # flax_init_state: ones and zeros
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -265,9 +338,12 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
     """Fresh parameters for `module` drawn as the JAX package's flax modules
     draw theirs: lecun-normal conv and linear kernels (a transposed conv's
     fan-in is in*kh*kw, a DenseGeneral's the product of its input axes),
-    zero biases, norms at ones/zeros, LPIPS lins U(0, 0.1), and N(0, std)
-    for the parameters a module names in its `normal_init` {name: std}.
-    Returns a state dict on the module's device; the module is untouched."""
+    orthogonal recurrent kernels (`RecurrentLinear`), zero biases, LPIPS
+    lins U(0, 0.1), N(0, std) for the parameters a module names in its
+    `normal_init` {name: std}, and their construction values (ones and
+    zeros) for the norms, which say so by `init_as_constructed`. Any other
+    parameter raises. Returns a state dict on the module's device; the
+    module is untouched."""
     out = {}
     for mname, m in module.named_modules():
         own = list(m.named_parameters(recurse=False)) \
@@ -278,6 +354,8 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
             conv_like = isinstance(m, (nn.Conv2d, nn.Linear, CanvasConv3x3, FusedConv3x3))
             if pname in getattr(m, "normal_init", {}):
                 new.normal_(0.0, m.normal_init[pname], generator=generator)
+            elif pname == "weight" and isinstance(m, RecurrentLinear):
+                nn.init.orthogonal_(new, generator=generator)
             elif pname == "weight" and isinstance(m, DenseGeneral):
                 lecun_normal_(new, m.fan_in, generator)
             elif pname == "weight" and isinstance(m, nn.ConvTranspose2d):
@@ -289,7 +367,10 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
                 new.zero_()
             elif pname.startswith("lin") and t.dim() == 1:
                 new.uniform_(0.0, 0.1, generator=generator)
+            elif getattr(m, "init_as_constructed", False):
+                new.copy_(t.detach())
             else:
-                new.copy_(t.detach())  # norms: their construction values
+                raise ValueError(f"flax_init_state: no initializer for {key} of "
+                                 f"{type(m).__name__}")
             out[key] = new.to(t.device)
     return out

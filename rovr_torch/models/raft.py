@@ -55,6 +55,8 @@ class InstanceNorm(nn.Module):
     (`weight`, flax `scale`) and bias, biased variance, eps 1e-5, computed in
     float32 and returned in the input's dtype. NCHW."""
 
+    init_as_constructed = True   # flax_init_state: its construction values
+
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(num_features))

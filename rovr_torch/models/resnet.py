@@ -24,6 +24,8 @@ class FrozenBatchNorm(nn.Module):
     """Eval-mode BatchNorm: y = weight * (x - mean) / sqrt(var + eps) + bias,
     statistics held as (frozen) buffers."""
 
+    init_as_constructed = True   # flax_init_state: its construction values
+
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()

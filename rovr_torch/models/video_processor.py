@@ -113,3 +113,16 @@ class VideoProcessor(nn.Module):
             (bi, ys[:, :, None], xs[:, None, :]), tiles.to(canvas.dtype)[..., None]
         )
         return canvas, feats
+
+    def extract_patch(self, indices: torch.Tensor, canvas: torch.Tensor) -> torch.Tensor:
+        """Tiles `indices` (B, K) of canvas (B, C, C, 1) -> (B, K, tile, tile),
+        for the ActionLSTM's history. A tile's origin is (idx // tiles_per_row,
+        idx % tiles_per_row) * tile, clamped to the canvas as
+        jax.lax.dynamic_slice clamps it."""
+        ar = torch.arange(self.tile, device=canvas.device)
+        y0 = (indices // self.tiles_per_row * self.tile).clamp(0, canvas.shape[1] - self.tile)
+        x0 = (indices % self.tiles_per_row * self.tile).clamp(0, canvas.shape[2] - self.tile)
+        ys = (y0[..., None] + ar)[..., :, None]                  # (B, K, tile, 1)
+        xs = (x0[..., None] + ar)[..., None, :]                  # (B, K, 1, tile)
+        bi = torch.arange(canvas.shape[0], device=canvas.device)[:, None, None, None]
+        return canvas[..., 0][bi, ys, xs]

@@ -13,8 +13,9 @@ baseline and against a random-policy control, with paired 95% intervals
 need no pretrained weights; LPIPS and flow values under random weights are
 marked as such (evaluate.run weights="random").
 
-Stage 5 (PPO on the frame-selection policy π₁, `policy1_iterations > 0`)
-is not ported: it raises.
+Stage 5 (`policy1_iterations > 0`) trains the frame-selection policy π₁ by
+PPO from stage 3's π₂ and holds it against a fresh, random π₁ on held-out
+clips.
 """
 
 from __future__ import annotations
@@ -122,16 +123,13 @@ def run(
     pretrained UNet, an untrained actor) and, with
     `ppo_from_random_iterations` > 0, of PPO from a random π₂ (stage 3b);
     `ppo_ablation`, their differences; with `eval_ci_clips` > 0 the per-clip
-    CI eval of every arm and `ablation_ci`, their paired deltas. Every stage
-    runs on CUDA unless `device="cpu"`. `policy1_iterations` > 0 (stage 5,
-    π₁) is not ported and raises NotImplementedError."""
+    CI eval of every arm and `ablation_ci`, their paired deltas; with
+    `policy1_iterations` > 0 stage 5 (`policy1`, `policy1_summary`,
+    `policy1_control`, see `_stage5`). Every stage runs on CUDA unless
+    `device="cpu"`."""
     from rovr_torch.device import resolve
     from rovr_torch.train import evaluate, imitation, pretrain_local, rl
 
-    if policy1_iterations > 0:
-        raise NotImplementedError(
-            "pipeline stage 5 (policy1_iterations > 0, PPO on pi1) is not in the port "
-            "yet (ROADMAP.md Queue 1 item 5)")
     cfg = cfg or default_config()
     dev = resolve(device)
     record: Dict[str, Any] = {
@@ -298,6 +296,10 @@ def run(
             rows = ci[readout]["masked_psnr_agentic"]
             print(f"  [{readout}] " + "  ".join(f"{k}: {_fmt(v)}" for k, v in rows.items()))
 
+    if policy1_iterations > 0:
+        record.update(_stage5(cfg, warm, rl_state, policy1_iterations, texture,
+                              texture_vel, eval_ci_clips, dev))
+
     record["wall_seconds"] = time.time() - t0
     et, er = record["eval_trained"], record["eval_random_policy"]
     ew = record["eval_warm_start_only"]
@@ -321,3 +323,81 @@ def run(
             json.dump(record, f, indent=1)
         print(f"[pipeline] record written to {out_path}")
     return record
+
+
+def _stage5(cfg: Config, warm: Dict[str, Any], rl_state, iterations: int, texture: float,
+            texture_vel: float, eval_ci_clips: int, dev) -> Dict[str, Any]:
+    """Stage 5: PPO on the frame-selection policy π₁ (use_policy1,
+    ppo_policy1) from stage 3's trained π₂, π₁, V₁ and the LSTM fresh; then
+    the trained π₁ against a fresh random π₁ (seed + 6, the same π₂) on the
+    same held-out clips (the device source at seed + 10000) with the same
+    noise for both arms of a batch: per-clip coverage (distinct targets /
+    steps) and return, paired 95% intervals. Returns the record's
+    `policy1`, `policy1_summary` and `policy1_control`."""
+    from rovr_torch.data.device_synthetic import make_source
+    from rovr_torch.models.policy_net_1 import gumbel_noise
+    from rovr_torch.train import evaluate, rl
+
+    t4 = time.time()
+    p1_cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, use_policy1=True, ppo_policy1=True))
+    curve: List[Dict[str, float]] = []
+    warm5 = dict(warm, actor2_params=rl_state.actor2_params)
+    p1_state = rl.run(p1_cfg, iterations=iterations, log_cb=_collect(curve),
+                      init_params=warm5, data_texture=texture,
+                      data_texture_vel=texture_vel, device=dev)
+    s_frames, t_steps = p1_cfg.rl.vid_length, p1_cfg.rl.time_steps
+    summary = {
+        "coverage_first10": _curve_avg(curve, "Episode/coverage", -10),
+        "coverage_last10": _curve_avg(curve, "Episode/coverage", 10),
+        "return_first10": _curve_avg(curve, "Episode/return", -10),
+        "return_last10": _curve_avg(curve, "Episode/return", 10),
+        "coverage_random_expected": (
+            (1.0 - (1.0 - 1.0 / s_frames) ** t_steps) * s_frames / t_steps),
+    }
+
+    mods = rl.make_modules(p1_cfg, device=dev)
+    ctrl_state = rl.init_state(p1_cfg, mods, cfg.run.seed + 6, **warm5)
+    ctrl_cfg = p1_cfg.replace(run=dataclasses.replace(p1_cfg.run,
+                                                      seed=cfg.run.seed + 10_000))
+    b = p1_cfg.rl.batch_size
+    n_ctrl = max(1, -(-eval_ci_clips // b)) if eval_ci_clips > 0 else 8
+    src = make_source(ctrl_cfg, b, ctrl_cfg.run.seed, texture, texture_vel, dev)
+    arms = {"trained": p1_state, "random_policy1": ctrl_state}
+    cov: Dict[str, List[float]] = {k: [] for k in arms}
+    ret: Dict[str, List[float]] = {k: [] for k in arms}
+    for i in range(n_ctrl):
+        corrupted, original, _, _, _ = src.next(i)
+        v, o = corrupted[:, :s_frames], original[:, :s_frames]
+        gen = torch.Generator(device=v.device).manual_seed(ctrl_cfg.run.seed + 2 + i)
+        noise = gumbel_noise((t_steps, b, s_frames), gen, v.device)
+        noise1 = gumbel_noise((t_steps, b, p1_cfg.model.pn1_num_frames), gen, v.device)
+        for name, st in arms.items():
+            out = rl.rollout(st, mods, p1_cfg, v, o, gumbel=noise, gumbel1=noise1)
+            tgt = out.traj.target_idx                                   # (T, B)
+            distinct = torch.nn.functional.one_hot(tgt, s_frames).any(0).sum(1)
+            cov[name].extend((distinct / t_steps).tolist())
+            ret[name].extend(out.traj.rtgs[0].float().tolist())
+    cov_d = evaluate.paired_delta(cov["trained"], cov["random_policy1"])
+    ret_d = evaluate.paired_delta(ret["trained"], ret["random_policy1"])
+    control = {
+        "n_clips": n_ctrl * b,
+        "coverage": {name: evaluate.summarize(cov[name]) for name in arms},
+        "return": {name: evaluate.summarize(ret[name]) for name in arms},
+    }
+    control["coverage"]["delta"] = cov_d
+    control["return"]["delta"] = ret_d
+    summary["coverage_random_measured"] = control["coverage"]["random_policy1"]["mean"]
+    summary["separates_from_random"] = bool(cov_d["separates"] and cov_d["mean"] > 0)
+    summary["verdict"] = (
+        "trained pi1 separates from the random-pi1 control"
+        if summary["separates_from_random"]
+        else "CHANCE-LEVEL: trained pi1 does not separate from the random-pi1 control "
+             "on held-out clips")
+    print(f"[pipeline] policy1 RL done in {time.time() - t4:.0f}s: coverage "
+          f"{summary['coverage_first10']:.3f} -> {summary['coverage_last10']:.3f} (random "
+          f"{summary['coverage_random_expected']:.3f}, ceiling 1.0); return "
+          f"{summary['return_first10']:.3f} -> {summary['return_last10']:.3f}")
+    print(f"[pipeline] policy1 control (n={n_ctrl * b}): coverage trained "
+          f"{cov_d['mean']:+.3f} ± {cov_d['ci95']:.3f} vs random-pi1; return "
+          f"{ret_d['mean']:+.3f} ± {ret_d['ci95']:.3f}; {summary['verdict']}")
+    return {"policy1": curve, "policy1_summary": summary, "policy1_control": control}

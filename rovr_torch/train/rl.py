@@ -6,12 +6,17 @@ checkpoints and metrics.
 The port covers both context policies (the canvas PolicyNet2 and the
 attention policy of config 5) with sequential targets, the sequential
 (vid2vid) baseline, the RAFT spatio signal (`log_spatio` /
-`use_spatio_reward`) and the `Episode/exposure` diagnostic. The pi1 path
-(`use_policy1`) is not ported; `rollout` raises on it.
+`use_spatio_reward`), the `Episode/exposure` diagnostic, and the
+frame-selection policy pi1 (`use_policy1`: PolicyNet1 picks each step's
+target from the canvas and the ActionLSTM's history token; `ppo_policy1`
+also trains it and its critic by PPO). pi1's modules, parameters and Adam
+states exist only with `use_policy1`; the JAX state always carries them.
+pi1's work runs under torch.profiler ranges: `rovr/pi1_act` and
+`rovr/pi1_lstm` in each rollout step, `rovr/pi1_ppo` in the update.
 
 State and modules are split as in the JAX package: `ROVRModules` holds the
 nn.Modules, `ROVRState` their parameters as state dicts (port layout, f32)
-and the actor's and critic's Adam states. `bind` points the modules at a
+and the actors' and critics' Adam states. `bind` points the modules at a
 state without copying it.
 
 The JAX rollout is one `lax.scan`; here it is a Python loop over
@@ -36,12 +41,15 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from rovr_torch.config import Config
 from rovr_torch.device import resolve
+from rovr_torch.models.action_lstm import ActionLSTM
 from rovr_torch.models.layers import flax_init_state
 from rovr_torch.models.local_net import LocalNetUNet
 from rovr_torch.models.policy_attention import AttentionContextPolicy
+from rovr_torch.models.policy_net_1 import PolicyNet1
 from rovr_torch.models.policy_net_2 import PolicyNet2
 from rovr_torch.models.raft import RAFTSmall, pairwise_flows, total_flow_magnitude
 from rovr_torch.models.vgg_lpips import LPIPS
@@ -62,14 +70,20 @@ class ROVRModules(NamedTuple):
     # RAFT for the train-time spatio signal; built only when cfg.rl.log_spatio
     # or use_spatio_reward asks for it
     raft: Optional[RAFTSmall] = None
+    # pi1, V1 and the action-history LSTM; built only with cfg.rl.use_policy1
+    actor1: Optional[PolicyNet1] = None
+    critic1: Optional[PolicyNet1] = None
+    lstm: Optional[ActionLSTM] = None
 
 
 class ROVRState(NamedTuple):
     """Parameters of each module as a state dict (name -> tensor), the
-    count of PPO updates, and the actor's and critic's Adam states
+    count of PPO updates, and the actors' and critics' Adam states
     ({"step": int, "exp_avg": {name: tensor}, "exp_avg_sq": {name: tensor}},
     optax.adam's (count, mu, nu)). `raft_params` is None unless the
-    spatio signal is on (cfg.rl.log_spatio / use_spatio_reward)."""
+    spatio signal is on (cfg.rl.log_spatio / use_spatio_reward); the pi1
+    fields are None unless cfg.rl.use_policy1 (the LSTM is never trained:
+    it has no Adam state)."""
 
     vp_params: Dict[str, torch.Tensor]
     actor2_params: Dict[str, torch.Tensor]
@@ -80,6 +94,11 @@ class ROVRState(NamedTuple):
     actor2_opt: dict
     critic2_opt: dict
     raft_params: Optional[Dict[str, torch.Tensor]] = None
+    actor1_params: Optional[Dict[str, torch.Tensor]] = None
+    critic1_params: Optional[Dict[str, torch.Tensor]] = None
+    lstm_params: Optional[Dict[str, torch.Tensor]] = None
+    actor1_opt: Optional[dict] = None
+    critic1_opt: Optional[dict] = None
 
 
 class Trajectory(NamedTuple):
@@ -87,10 +106,15 @@ class Trajectory(NamedTuple):
 
     obs: tuple                  # canvas: (canvas (T,B,C,C,1), target_feat (T,B,D));
                                 # attention: (frame feats (T,B,S,D),)
-    target_idx: torch.Tensor    # (T, B) int64
+    target_idx: torch.Tensor    # (T, B) int64; pi1's action with use_policy1
     actions: torch.Tensor       # (T, B, 2) int64
     logprobs: torch.Tensor      # (T, B)
     rtgs: Optional[torch.Tensor]  # (T, B); None without rewards
+    # pi1 only (None otherwise): (canvas (T,B,C,C,1), token (T,B,C,C,1)),
+    # the state pi1 acted on, before the step's tile insert; and its
+    # behavior logprobs of target_idx (T, B)
+    obs1: Optional[tuple] = None
+    logprobs1: Optional[torch.Tensor] = None
 
 
 class RolloutOut(NamedTuple):
@@ -111,7 +135,9 @@ class EpisodeInit(NamedTuple):
 _MODULE_STATE = {
     "vp": "vp_params", "actor2": "actor2_params", "critic2": "critic2_params",
     "local_net": "local_net_params", "lpips": "lpips_params", "raft": "raft_params",
+    "actor1": "actor1_params", "critic1": "critic1_params", "lstm": "lstm_params",
 }
+_OWN_STREAM = ("raft", "actor1", "critic1", "lstm")  # drawn apart in init_state
 
 
 def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
@@ -128,6 +154,7 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
         local_net=LocalNetUNet(channels=m.local_net_channels, dtype=dt),
         lpips=make_lpips(cfg, dt),
         raft=_maybe_raft(cfg, dt),
+        **_maybe_policy1(cfg, dt),
     )
     for mod in mods:
         if mod is not None:
@@ -178,6 +205,23 @@ def _maybe_raft(cfg: Config, dt: torch.dtype) -> Optional[RAFTSmall]:
     return RAFTSmall(dtype=dt)
 
 
+def _maybe_policy1(cfg: Config, dt: torch.dtype) -> dict:
+    """actor1, critic1 and lstm with cfg.rl.use_policy1, else nothing. The
+    head covers pn1_num_frames; sampling is restricted to the clip's
+    vid_length frames; PPO on pi1 (ppo_policy1) needs the noise-free
+    logprob."""
+    if not cfg.rl.use_policy1:
+        return {}
+    m = cfg.model
+    pn1 = dict(num_frames=m.pn1_num_frames, channels=m.pn1_channels,
+               temperature=m.pn1_temperature, dtype=dt, valid_frames=cfg.rl.vid_length,
+               exact_logprob=cfg.rl.ppo_policy1, per_sample_stats=m.per_sample_stats,
+               canvas_size=m.canvas_size)
+    return dict(actor1=PolicyNet1(**pn1), critic1=PolicyNet1(**pn1, is_critic=True),
+                lstm=ActionLSTM(hidden_dim=m.lstm_hidden_dim, token_size=m.canvas_size,
+                                tile=m.canvas_tile))
+
+
 def resolved_flow_size(cfg: Config) -> int:
     """The RAFT input size of the spatio path: cfg.rl.spatio_flow_size
     clamped to the smaller frame dimension (upsampling frames past their
@@ -199,7 +243,8 @@ def init_state(cfg: Config, mods: ROVRModules, seed: int,
                lpips_params: Optional[Dict[str, torch.Tensor]] = None,
                critic2_params: Optional[Dict[str, torch.Tensor]] = None,
                vp_backbone_params: Optional[Dict[str, torch.Tensor]] = None,
-               raft_params: Optional[Dict[str, torch.Tensor]] = None) -> ROVRState:
+               raft_params: Optional[Dict[str, torch.Tensor]] = None,
+               actor1_params: Optional[Dict[str, torch.Tensor]] = None) -> ROVRState:
     """Fresh parameters from `seed`, drawn as the JAX package's flax
     initializers draw them (lecun-normal kernels, zero biases, LPIPS lins
     U(0, 0.1), N(0, 0.02) attention embeddings), on the modules' device,
@@ -209,15 +254,16 @@ def init_state(cfg: Config, mods: ROVRModules, seed: int,
     state dict in the port's layout (`utils.convert`). `vp_backbone_params`
     replaces only the VideoProcessor's backbone. A given module's draws are
     still made, so the others' do not depend on what was given; RAFT draws
-    from a stream of its own (seed + 99), so turning the spatio signal on
-    changes no other module's parameters."""
+    from a stream of its own (seed + 99), and pi1's modules (actor1, critic1,
+    lstm, with cfg.rl.use_policy1) from another (seed + 98), so turning the
+    spatio signal or pi1 on changes no other module's parameters."""
     gen = torch.Generator().manual_seed(seed)
     given = {"local_net_params": local_net_params, "vp_params": vp_params,
              "actor2_params": actor2_params, "lpips_params": lpips_params,
              "critic2_params": critic2_params}
     params = {}
     for name, mod in zip(ROVRModules._fields, mods):
-        if name == "raft":
+        if name in _OWN_STREAM:
             continue
         field = _MODULE_STATE[name]
         fresh = flax_init_state(mod, gen)
@@ -234,6 +280,16 @@ def init_state(cfg: Config, mods: ROVRModules, seed: int,
     elif raft_params is not None:
         raise ValueError("raft_params given but the spatio signal is off "
                          "(cfg.rl.log_spatio / use_spatio_reward)")
+    if mods.actor1 is not None:
+        gen1 = torch.Generator().manual_seed(seed + 98)
+        for name in ("actor1", "critic1", "lstm"):
+            params[f"{name}_params"] = flax_init_state(getattr(mods, name), gen1)
+        params["actor1_params"] = _given("actor1_params", actor1_params,
+                                         params["actor1_params"])
+        params["actor1_opt"] = adam_init(params["actor1_params"])
+        params["critic1_opt"] = adam_init(params["critic1_params"])
+    elif actor1_params is not None:
+        raise ValueError("actor1_params given but pi1 is off (cfg.rl.use_policy1)")
     return ROVRState(**params, step=0,
                      actor2_opt=adam_init(params["actor2_params"]),
                      critic2_opt=adam_init(params["critic2_params"]))
@@ -275,12 +331,6 @@ def bind(mods: ROVRModules, state: ROVRState) -> None:
         mod.load_state_dict({k: v.to(dev) for k, v in params.items()},
                             strict=True, assign=True)
         mod.requires_grad_(False)
-
-
-def _check_supported(cfg: Config) -> None:
-    if cfg.rl.use_policy1 or cfg.rl.ppo_policy1:
-        raise NotImplementedError(
-            "not in the port yet: use_policy1 / ppo_policy1 (ROADMAP.md Queue 1 item 5)")
 
 
 def _write_frame(video: torch.Tensor, idx: torch.Tensor, frame: torch.Tensor) -> None:
@@ -370,12 +420,18 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             generator: Optional[torch.Generator] = None,
             rewards: bool = True,
             gumbel: Optional[torch.Tensor] = None,
-            init: Optional[EpisodeInit] = None) -> RolloutOut:
+            init: Optional[EpisodeInit] = None,
+            gumbel1: Optional[torch.Tensor] = None) -> RolloutOut:
     """The episode (ROVR.forward), gradient-free.
 
     video/org_video: (B, S, H, W, 3) in [0,1]. When cfg.rl.greedy is off the
     Gumbel noise is `gumbel` (T, B, S), or is drawn from `generator`
-    (default: seeded from cfg.run.seed). `rewards=False` skips the LPIPS
+    (default: seeded from cfg.run.seed). With cfg.rl.use_policy1, pi1 picks
+    each step's target (sampled whatever cfg.rl.greedy says, as in the JAX
+    package) from the canvas and the LSTM token, with the noise `gumbel1`
+    (T, B, pn1_num_frames) or drawn from `generator` before pi2's; after the
+    tile insert the LSTM reads the chosen frames' tiles of the new canvas.
+    The target stays on the device. `rewards=False` skips the LPIPS
     reward path in the init and in every step, and the spatio signal, which
     is what XLA's dead-code elimination does to a JAX graph that drops
     them; the trajectory then has no rewards-to-go and `metrics` is empty.
@@ -390,13 +446,17 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     use_spatio_reward also adds it to the last step's reward before the
     rewards-to-go.
     """
-    _check_supported(cfg)
     rl = cfg.rl
     b, s = video.shape[:2]
     dev = video.device
     attention = rl.context_policy == "attention"
     cache_from = cfg.model.lpips_cache_from_stage
-    if not rl.greedy and gumbel is None and generator is None:
+    policy1 = rl.use_policy1
+    if policy1 and (mods.actor1 is None or state.actor1_params is None):
+        raise ValueError("cfg.rl.use_policy1 needs make_modules and init_state built "
+                         "with the same cfg (mods.actor1, actor1_params)")
+    draws = ((not rl.greedy and gumbel is None) or (policy1 and gumbel1 is None))
+    if draws and generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
 
     if init is None:
@@ -410,9 +470,20 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     recon = video_cd.clone()
     exp_video = video_cd.clone() if rl.sequential_baseline else None
     ar = torch.arange(b, device=dev)
-    ys = {k: [] for k in ("obs", "tgt", "acs", "logp", "marginal", "lpips", "mse")}
+    ys = {k: [] for k in ("obs", "tgt", "acs", "logp", "marginal", "lpips", "mse",
+                          "obs1", "logp1")}
+    if policy1:
+        lstm_c = mods.lstm.init_carry(b)
+        token = torch.zeros(b, mods.lstm.token_size, mods.lstm.token_size, 1, device=dev)
     for t in range(rl.time_steps):
-        tgt = torch.full((b,), t % s, dtype=torch.long, device=dev)
+        if policy1:
+            ys["obs1"].append((cvs, token))
+            with record_function("rovr/pi1_act"):
+                tgt, lp1 = mods.actor1.act(cvs, token,
+                                           None if gumbel1 is None else gumbel1[t], generator)
+            ys["logp1"].append(lp1)
+        else:
+            tgt = torch.full((b,), t % s, dtype=torch.long, device=dev)
         obs = (fts,) if attention else (cvs, fts[ar, tgt])
         ys["obs"].append(obs)
         noise = None if (rl.greedy or gumbel is None) else gumbel[t]
@@ -445,6 +516,10 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             # keep the per-frame feature table in step with the written frame
             # (JAX rl.py:628-633); out of place: ys holds the old table
             fts = fts.index_put((ar, tgt), new_feat.to(fts.dtype))
+        if policy1:
+            with record_function("rovr/pi1_lstm"):
+                chosen = torch.cat([tgt[:, None], acs], 1)
+                lstm_c, token = mods.lstm(lstm_c, chosen, mods.vp.extract_patch(chosen, cvs))
         ys["tgt"].append(tgt)
         ys["acs"].append(acs)
         ys["logp"].append(logp)
@@ -475,6 +550,8 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
         obs=tuple(torch.stack(x) for x in zip(*ys["obs"])),
         target_idx=target_idx, actions=torch.stack(ys["acs"]),
         logprobs=torch.stack(ys["logp"]), rtgs=rtgs,
+        obs1=tuple(torch.stack(x) for x in zip(*ys["obs1"])) if policy1 else None,
+        logprobs1=torch.stack(ys["logp1"]) if policy1 else None,
     )
     experimental = None if exp_video is None else exp_video.to(video.dtype)
     return RolloutOut(traj, recon, experimental, metrics)
@@ -562,7 +639,14 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
     normalized once, then n_updates_per_ppo epochs, each an actor Adam step
     and then a critic Adam step. The actor's fresh Gumbel noise is
     `gumbel` (n_updates, B*T, S) in `_flat`'s row order, or is drawn from
-    `generator` (default: seeded from cfg.run.seed + 1)."""
+    `generator` (default: seeded from cfg.run.seed + 1).
+
+    With cfg.rl.use_policy1 and ppo_policy1, then the same on actor1/critic1
+    over the trajectory's obs1 and target_idx, from the same rewards-to-go,
+    on their own Adam states (`PPO/actor1_loss`, `PPO/critic1_loss`). Its
+    logprob is the noise-free one (exact mode), so it draws no noise. Every
+    PPO batch is the whole B*T rows: pi1's norms take the batch's
+    statistics, so splitting it would change the result."""
     rl = cfg.rl
     obs = tuple(_flat(x) for x in traj.obs)
     tgt, acs = _flat(traj.target_idx), _flat(traj.actions)
@@ -596,21 +680,64 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
         critic2_opt=_adam_state(c_opt, c_named),
     )
     metrics = {"PPO/actor_loss": a_loss.detach(), "PPO/critic_loss": c_loss.detach()}
+    if rl.use_policy1 and rl.ppo_policy1 and traj.obs1 is not None:
+        with record_function("rovr/pi1_ppo"):
+            state, m1 = _ppo_policy1(state, mods, cfg, traj, rtgs, generator)
+        metrics.update(m1)
     return state, metrics
+
+
+def _ppo_policy1(state: ROVRState, mods: ROVRModules, cfg: Config, traj: Trajectory,
+                 rtgs: torch.Tensor, generator: Optional[torch.Generator]):
+    """PPO-clip on pi1/V1 (JAX rl.py's second epoch scan): V1 on the
+    flattened obs1 for the normalized advantage, then n_updates_per_ppo
+    epochs of an actor1 Adam step and a critic1 Adam step."""
+    rl = cfg.rl
+    obs1 = tuple(_flat(x) for x in traj.obs1)
+    act1, old_lp1 = _flat(traj.target_idx), _flat(traj.logprobs1)
+    a_named = _trainable(mods.actor1, state.actor1_params)
+    c_named = _trainable(mods.critic1, state.critic1_params)
+    with torch.no_grad():
+        adv = normalized_advantage(rtgs, mods.critic1.value(*obs1))
+    a_opt = _adam(a_named, state.actor1_opt, rl.actor_lr)
+    c_opt = _adam(c_named, state.critic1_opt, rl.critic_lr)
+    for _ in range(rl.n_updates_per_ppo):
+        a_opt.zero_grad(set_to_none=True)
+        a_loss = ppo_clip_actor_loss(
+            mods.actor1.logprob(*obs1, act1, generator=generator), old_lp1, adv, rl.clip)
+        a_loss.backward()
+        _adam_step(a_opt, a_named)
+        c_opt.zero_grad(set_to_none=True)
+        c_loss = critic_loss(mods.critic1.value(*obs1), rtgs)
+        c_loss.backward()
+        _adam_step(c_opt, c_named)
+    for mod in (mods.actor1, mods.critic1):
+        mod.requires_grad_(False)
+    state = state._replace(
+        actor1_params={n: p.detach() for n, p in a_named},
+        critic1_params={n: p.detach() for n, p in c_named},
+        actor1_opt=_adam_state(a_opt, a_named),
+        critic1_opt=_adam_state(c_opt, c_named),
+    )
+    return state, {"PPO/actor1_loss": a_loss.detach(),
+                   "PPO/critic1_loss": c_loss.detach()}
 
 
 def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
                video: torch.Tensor, org_video: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               masks: Optional[torch.Tensor] = None):
+               masks: Optional[torch.Tensor] = None,
+               gumbel1: Optional[torch.Tensor] = None):
     """One RL step: rollout with rewards, then PPO (ROVR.train). Returns
     (state, metrics, reconstructed).
 
     `video`/`org_video` (B, S, H, W, 3) are uint8, divided by 255 on the
     device, or float in [0, 1]. The Gumbel noise of the rollout and of PPO
     comes from `generator` (default: seeded from cfg.run.seed), or is given
-    as `gumbel` = (rollout noise (T, B, S), PPO noise (n_updates, B*T, S)).
+    as `gumbel` = (rollout noise (T, B, S), PPO noise (n_updates, B*T, S));
+    pi1's rollout noise (cfg.rl.use_policy1) as `gumbel1` (T, B,
+    pn1_num_frames).
     `masks` (B, S, H, W, C), 1 where the frame kept its content, adds
     `Episode/exposure`: the share of the targets' hole pixels that a chosen
     context frame exposes."""
@@ -623,7 +750,8 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
     if gumbel is None and generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     g_roll, g_ppo = gumbel if gumbel is not None else (None, None)
-    out = rollout(state, mods, cfg, video, org_video, generator, True, g_roll)
+    out = rollout(state, mods, cfg, video, org_video, generator, True, g_roll,
+                  gumbel1=gumbel1)
     state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo)
     metrics = dict(out.metrics)
     metrics.update(ppo_metrics)
@@ -716,7 +844,6 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
     from rovr_torch.utils.logging import MetricsWriter
 
     cfg = cfg or Config()
-    _check_supported(cfg)
     iterations = iterations if iterations is not None else cfg.run.max_iterations
     b, s = cfg.rl.batch_size, cfg.rl.vid_length
     if dataset is None and source is None:

@@ -62,10 +62,18 @@ def _to_plain(tree: Any) -> Any:
 
 def _like(template: Any, loaded: Any) -> Any:
     """`loaded` (plain dicts) in the structure of `template`, each tensor on
-    its template tensor's device."""
+    its template tensor's device. Where the template holds None (RAFT or pi1
+    off in its configuration) the checkpoint's part is dropped; where it
+    holds a part the checkpoint lacks, ValueError."""
     if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(**{f: _like(getattr(template, f), loaded[f])
+        # a field may be absent from a checkpoint written before it existed
+        return type(template)(**{f: _like(getattr(template, f), loaded.get(f))
                                  for f in template._fields})
+    if template is None:
+        return None   # a part the template's configuration does not build
+    if loaded is None:
+        raise ValueError(f"the checkpoint lacks a part the template holds "
+                         f"({type(template).__name__})")
     if isinstance(template, dict):
         if set(template) != set(loaded):
             raise ValueError(f"checkpoint keys differ from the template's: "

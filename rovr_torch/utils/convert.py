@@ -5,13 +5,15 @@ nested mapping of arrays, numpy or JAX) to the port's `ROVRState`, module
 by module. The port's modules keep the flax names, so the map is by rule:
 
   * conv kernel HWIO (kh,kw,in,out) -> OIHW (out,in,kh,kw);
-  * transposed-conv kernel (the UNet's upconv*) HWIO -> IOHW (in,out,kh,kw)
+  * transposed-conv kernel (the UNet's upconv*, PolicyNet1's
+    ConvTranspose_0) HWIO -> IOHW (in,out,kh,kw)
     with a spatial flip (flax's ConvTranspose correlates the un-flipped
     kernel; the inverse of rovr_tpu/models/local_net.py:100-104);
   * Dense kernel (in,out) -> Linear weight (out,in);
   * norm `scale` -> `weight`, frozen-norm `mean`/`var` -> `running_mean`/
     `running_var`;
-  * flax list names `convs_0`/`norms_0` -> `convs.0`/`norms.0`, and the
+  * flax list names `convs_0`/`norms_0` (PolicyNet1's `enc_0`, `up_0`,
+    `dec_0`) -> `convs.0`/`norms.0`, and the
     `final_fc` MLP's `Dense_j` -> `j` (a Dense_j elsewhere, as in the
     attention blocks' FeedForwardBlock, keeps its name);
   * a DenseGeneral kernel (3-D: q/k/v (in,H,D), out (H,D,out), the attention
@@ -55,7 +57,7 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
 
 
 def _module_name(name: str, parent: str) -> str:
-    m = re.fullmatch(r"(convs|norms)_(\d+)", name)
+    m = re.fullmatch(r"(convs|norms|enc|up|dec)_(\d+)", name)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
     m = re.fullmatch(r"Dense_(\d+)", name)
@@ -68,7 +70,7 @@ def module_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for path, a in _leaves(tree):
         *mods, leaf = path
         if leaf == "kernel" and a.ndim == 4:
-            if mods and mods[-1].startswith("upconv"):
+            if mods and mods[-1].startswith(("upconv", "ConvTranspose")):
                 a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)
@@ -91,25 +93,30 @@ def _adam_from_jax(opt, device) -> Optional[dict]:
     return None
 
 
-def params_from_jax(jax_state: Any, device=None) -> ROVRState:
+def params_from_jax(jax_state: Any, device=None, policy1: bool = False) -> ROVRState:
     """JAX ROVRState (or a mapping with its `*_params` fields) -> the port's
     ROVRState on `device` (default: the CPU): every module's parameters
     (`raft_params` None where the JAX state has none), the PPO step count
     and, where the JAX state has them, the actor's and critic's Adam states
-    (else fresh ones)."""
+    (else fresh ones). The JAX state always carries pi1's fields; they are
+    taken only with `policy1` (for a port state built with
+    cfg.rl.use_policy1), and are None otherwise. The LSTM's cell maps by
+    rule: flax's OptimizedLSTMCell names (`cell.ii`..`cell.ho`) are the
+    port's."""
     def get(field, default=None):
         if isinstance(jax_state, Mapping):
             return jax_state.get(field, default)
         return getattr(jax_state, field, default)
 
     dev = device or "cpu"
+    pi1 = ("actor1_params", "critic1_params", "lstm_params")
     params = {
-        f: None if get(f) is None else
+        f: None if get(f) is None or (f in pi1 and not policy1) else
         {k: v.to(dev) for k, v in module_params_from_jax(get(f)).items()}
         for f in ROVRState._fields if f.endswith("_params")
     }
     opts = {}
-    for f in ("actor2", "critic2"):
+    for f in ("actor2", "critic2") + (("actor1", "critic1") if policy1 else ()):
         opt = _adam_from_jax(get(f"{f}_opt"), dev)
         opts[f"{f}_opt"] = opt if opt is not None else adam_init(params[f"{f}_params"])
     return ROVRState(**params, **opts, step=int(np.asarray(get("step", 0))))

@@ -41,7 +41,8 @@ ARGVS = {
     "rl": [[], ["--vid_length", "12", "--time_steps", "8", "--n_updates_per_ppo", "3",
                 "--batch_size", "4", "--context_policy", "attention",
                 "--sequential_baseline", "--iterations", "7", "--run_dir", "r",
-                "--seed", "5", "--root_folder", "no_such_dir", "--debug_short_dataset"]],
+                "--seed", "5", "--root_folder", "no_such_dir", "--debug_short_dataset"],
+           ["--use_policy1"], ["--ppo_policy1", "--context_policy", "attention"]],
     "eval": [[], ["--num_videos", "8", "--vid_length", "6", "--flow_size", "64",
                   "--restore_from", "ck", "--force", "--seed", "2"]],
     "reconstruct": [[], ["--num_clips", "3", "--vid_length", "9", "--batch_size", "3",
@@ -84,9 +85,13 @@ def test_same_argv_builds_the_jax_config(monkeypatch, cmd):
         assert args.device == "cpu"
 
 
-def test_unported_flags_and_commands_refuse(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcli.main(["rl", "--use_policy1"])
+def test_unported_flags_and_commands_refuse(tmp_path, capsys, monkeypatch):
+    # pi1 is ported: `pipeline --policy1_iterations` hands stage 5 its count
+    seen = {}
+    monkeypatch.setattr("rovr_torch.train.pipeline.run",
+                        lambda cfg, **kw: seen.update(kw) or {})
+    assert tcli.main(["pipeline", "--policy1_iterations", "3", "--device", "cpu"]) == 0
+    assert seen["policy1_iterations"] == 3 and seen["device"] == "cpu"
     with pytest.raises(NotImplementedError, match="item 7"):
         tcli.main(["rl", "--warm_start", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -98,8 +103,6 @@ def test_unported_flags_and_commands_refuse(tmp_path, capsys):
     for cmd in ("pretrain", "imitate", "pipeline"):
         with pytest.raises(NotImplementedError, match="item 6"):
             tcli.main([cmd, "--root_folder", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcli.main(["pipeline", "--policy1_iterations", "1", "--device", "cpu"])
     assert tcli.main(["convert"]) == 2
     assert tcli.main(["nonsense"]) == 2
     assert tcli.main(["--help"]) == 0
@@ -143,6 +146,22 @@ def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert any(line.startswith("Eval/psnr_agentic:") for line in lines)
     assert not any(line.startswith(("Eval/flow_recovery", "Eval/lpips")) for line in lines)
     assert any("4 weight-dependent metrics withheld" in line for line in lines)
+
+
+def test_rl_ppo_policy1_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """`rl --ppo_policy1` trains pi1 (use_policy1 follows) and logs its PPO
+    losses beside pi2's."""
+    c = _tiny_config(batch_size=2)
+    tiny = from_dict(dataclasses.asdict(c.replace(
+        model=dataclasses.replace(c.model, **tiny_model_overrides(), lstm_hidden_dim=32))))
+    monkeypatch.setattr(tcli, "Config", lambda: tiny)
+    cfg, _ = tcli.rl_config(["--ppo_policy1"])
+    assert cfg.rl.use_policy1 and cfg.rl.ppo_policy1
+    assert tcli.main(["rl", "--ppo_policy1", "--iterations", "1", "--batch_size", "2",
+                      "--vid_length", "5", "--time_steps", "4", "--n_updates_per_ppo", "1",
+                      "--run_dir", str(tmp_path), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "PPO/actor1_loss=" in out and "PPO/critic1_loss=" in out
 
 
 def test_pretrain_imitate_and_pipeline_on_the_cpu(monkeypatch, tmp_path, capsys):

@@ -79,15 +79,32 @@ def cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _kernels_run(fn):
-    """Names of the device kernels one call of fn launches (torch.profiler)."""
+CAPTURES = 3  # profiler captures before an empty trace fails
+
+
+def _kernels_run(fn, wrapper):
+    """Names of the device kernels one call of fn launches (torch.profiler).
+
+    The device is synchronized before the profiler starts, so no earlier
+    work is in flight when tracing begins. A trace with no kernel at all is
+    "not observed" and fn runs again under a new capture, up to CAPTURES
+    times; every capture must raise `wrapper.launches` by exactly one, and a
+    trace that stays empty fails. The caller checks the route on the first
+    trace that shows kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(CAPTURES):
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ran = [e.key for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0]
+        if ran:
+            return ran
+    raise AssertionError(f"the profiler saw no kernel in {CAPTURES} captures")
 
 
 def _close(got, ref):
@@ -177,6 +194,49 @@ def test_mma_hook_refuses_cpu_tensors(hook):
         getattr(tops, f"flash_attention_{hook}_mma")(*args)
 
 
+def test_kernels_run_captures_again_on_an_empty_trace(monkeypatch):
+    """The route check's capture: an empty trace is not an observation (a
+    new capture follows, each one launch), a trace that stays empty fails,
+    and the first trace with kernels is returned as it is."""
+    import torch.profiler
+
+    class Event:
+        def __init__(self, key, us):
+            self.key, self.self_device_time_total = key, us
+
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return traces.pop(0)
+
+    class Wrapper:
+        launches = 0
+
+    def fn():
+        Wrapper.launches += 1
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    traces[:] = [[Event("memcpy", 0)], [], [Event("flash_dq_tma_kernel", 5),
+                                            Event("elementwise", 0)]]
+    assert _kernels_run(fn, Wrapper) == ["flash_dq_tma_kernel"]
+    assert Wrapper.launches == 3 and not traces
+    traces[:] = [[], [], [], [Event("flash_dq_kernel", 5)]]
+    with pytest.raises(AssertionError, match="no kernel in 3 captures"):
+        _kernels_run(fn, Wrapper)
+    assert Wrapper.launches == 6
+
+
 def test_cpu_forward_runs_the_twin_and_counts_no_launch():
     q, k, v, _ = (torch.from_numpy(a) for a in _qkv(0, 1, 2, 70, 40, 48))
     before = tops.flash_attention_fwd.launches
@@ -198,10 +258,10 @@ def test_k2_matches_plain_on_its_route(cuda, name):
     (b, h, lq, lk, d), route = K2_SHAPES[name]
     q, k, v, _ = (torch.from_numpy(a).cuda().bfloat16() for a in _qkv(7, b, h, lq, lk, d))
     assert tops._lib().rovr_flash_fwd_route(d) == (route == "tma")
-    before = tops.flash_attention_fwd.launches
     out = {}
-    ran = _kernels_run(lambda: out.update(kernel=tops.flash_attention_fwd(q, k, v)))
-    assert tops.flash_attention_fwd.launches == before + 1
+    ran = _kernels_run(lambda: out.update(kernel=tops.flash_attention_fwd(q, k, v)),
+                       tops.flash_attention_fwd)
+    before = tops.flash_attention_fwd.launches
     assert any(KERNEL_NAME[route] in n for n in ran), ran
     other = KERNEL_NAME["mma" if route == "tma" else "tma"]
     assert not any(other in n for n in ran), ran
@@ -209,7 +269,7 @@ def test_k2_matches_plain_on_its_route(cuda, name):
     o_p, lse_p = tops.flash_attention_fwd_plain(q, k, v)
     o_m, lse_m = tops.flash_attention_fwd_mma(q, k, v)
     torch.cuda.synchronize()
-    assert tops.flash_attention_fwd.launches == before + 1  # the hook counts none
+    assert tops.flash_attention_fwd.launches == before  # the hook counts none
     for got, got_lse in ((o, lse), (o_m, lse_m)):
         assert torch.isfinite(got.float()).all()
         assert _close(got, o_p)
@@ -222,7 +282,7 @@ def test_k2_matches_plain_on_its_route(cuda, name):
 def test_bwd_matches_plain_on_its_route(cuda, name, kernel):
     """K3 or K4 against its plain twin, fed K2's O and LSE: the kernel the
     profiler saw is the one the route names and the other route's did not
-    run, the launch count rose by one, and the mma.sync kernel (its test
+    run, the launch count rose by one per capture, and the mma.sync kernel (its test
     hook, which counts nothing) is within the tolerance of the twin too."""
     (b, h, lq, lk, d), route = BWD_SHAPES[name]
     q, k, v, g = (torch.from_numpy(a).cuda().bfloat16() for a in _qkv(11, b, h, lq, lk, d))
@@ -230,10 +290,9 @@ def test_bwd_matches_plain_on_its_route(cuda, name, kernel):
     o, lse = tops.flash_attention_fwd(q, k, v)
     delta = (g.float() * o.float()).sum(-1)
     wrapper = getattr(tops, f"flash_attention_{kernel}")
-    before = wrapper.launches
     out = {}
-    ran = _kernels_run(lambda: out.update(kernel=wrapper(q, k, v, g, lse, delta)))
-    assert wrapper.launches == before + 1
+    ran = _kernels_run(lambda: out.update(kernel=wrapper(q, k, v, g, lse, delta)), wrapper)
+    before = wrapper.launches
     names = BWD_KERNEL_NAME[kernel]
     assert any(names[route] in n for n in ran), ran
     other = names["mma" if route == "tma" else "tma"]
@@ -241,7 +300,7 @@ def test_bwd_matches_plain_on_its_route(cuda, name, kernel):
     hook = getattr(tops, f"flash_attention_{kernel}_mma")(q, k, v, g, lse, delta)
     plain = getattr(tops, f"flash_attention_{kernel}_plain")(q, k, v, g, lse, delta)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1  # the hook counts none
+    assert wrapper.launches == before  # the hook counts none
     got = out["kernel"]
     if kernel == "dq":
         got, hook, plain = (got,), (hook,), (plain,)
@@ -329,3 +388,28 @@ def test_cuda_k1_backward_at_pretrain_shapes(cuda, shape):
         assert torch.isfinite(got.float()).all()
         err = (got.float() - ref).abs().max().item()
         assert err <= K1_TOL * ref.abs().max().item(), (shape, err)
+
+
+@pytest.mark.cuda
+def test_policy1_act_on_the_card(cuda):
+    """pi1 (PolicyNet1 at config 5's widths: channels 32-256, a 256^2 canvas,
+    a 64-way head) in bf16 on the card, batch 8: finite logits, targets in
+    [0, 64), and the exact-mode logprob equal to log_softmax of the same
+    standardized logits at the chosen target."""
+    from rovr_torch.models.layers import flax_init_state, standardize
+    from rovr_torch.models.policy_net_1 import PolicyNet1
+
+    pol = PolicyNet1(num_frames=64, valid_frames=64, exact_logprob=True,
+                     canvas_size=256).cuda()
+    pol.load_state_dict(flax_init_state(pol, torch.Generator().manual_seed(0)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    canvas = torch.randn(8, 256, 256, 1, device="cuda", generator=gen).bfloat16()
+    token = torch.randn(8, 256, 256, 1, device="cuda", generator=gen)
+    with torch.no_grad():
+        logits = pol.logits(canvas, token)
+        action, logprob = pol.act(canvas, token, generator=gen)
+    torch.cuda.synchronize()
+    assert logits.shape == (8, 64) and torch.isfinite(logits).all()
+    assert ((action >= 0) & (action < 64)).all()
+    want = torch.log_softmax(standardize(logits, 1, eps=0.1), 1).gather(1, action[:, None])
+    assert (logprob - want[:, 0]).abs().max().item() <= 1e-4

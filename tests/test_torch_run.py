@@ -160,9 +160,14 @@ def test_dataset_path_and_unported_options(tmp_path):
     _, tex = _cfg(tmp_path / "textured")
     assert trl.run(tex, iterations=1, data_texture=1.0, device="cpu").step == 1
     assert "Episode/exposure" in {r["tag"] for r in _records(tex)}
-    p1 = ct.replace(rl=dataclasses.replace(ct.rl, use_policy1=True))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trl.run(p1, iterations=1, device="cpu")
+    # pi1 with PPO on it: the run trains it and logs its losses
+    _, p1 = _cfg(tmp_path / "pi1")
+    p1 = p1.replace(rl=dataclasses.replace(p1.rl, use_policy1=True, ppo_policy1=True),
+                    model=dataclasses.replace(p1.model, lstm_hidden_dim=32))
+    state = trl.run(p1, iterations=1, device="cpu")
+    assert state.step == 1 and state.actor1_opt["step"] == p1.rl.n_updates_per_ppo
+    assert {"PPO/actor1_loss", "PPO/critic1_loss", "Episode/coverage"} <= \
+        {r["tag"] for r in _records(p1)}
 
 
 def test_spatio_train_step_matches_jax(tmp_path):

@@ -114,11 +114,32 @@ def test_sampled_rollout_draws_from_generator(pair):
 
 
 def test_rollout_rejects_unported_options(pair):
+    """pi1 (use_policy1) is ported: a rollout with it refuses modules and a
+    state built without it, and with them picks every target by pi1 (in
+    [0, S), one per step and clip, deterministic under a seeded generator)
+    and records pi1's observations and logprobs."""
     v = torch.from_numpy(pair["corrupted"])
-    for kw in (dict(use_policy1=True), dict(ppo_policy1=True)):
-        _, ct = _configs(**kw)
-        with pytest.raises(NotImplementedError):
-            trl.rollout(pair["state_t"], pair["mods_t"], ct, v, v)
+    _, ct = _configs(use_policy1=True)
+    ct = ct.replace(model=dataclasses.replace(ct.model, lstm_hidden_dim=32))
+    with pytest.raises(ValueError, match="use_policy1"):
+        trl.rollout(pair["state_t"], pair["mods_t"], ct, v, v, rewards=False)
+    mods = trl.make_modules(ct, dtype=torch.float32, device="cpu")
+    state = trl.init_state(ct, mods, seed=0)
+
+    def run(seed):
+        return trl.rollout(state, mods, ct, v, v, rewards=False,
+                           generator=torch.Generator().manual_seed(seed)).traj
+
+    traj, again = run(0), run(0)
+    t, s = ct.rl.time_steps, ct.rl.vid_length
+    assert traj.target_idx.shape == (t, B) and traj.logprobs1.shape == (t, B)
+    assert ((traj.target_idx >= 0) & (traj.target_idx < s)).all()
+    assert torch.equal(traj.target_idx, again.target_idx)
+    assert torch.equal(traj.actions, again.actions)
+    canvas, token = traj.obs1
+    c = ct.model.canvas_size
+    assert canvas.shape == token.shape == (t, B, c, c, 1)
+    assert float(token[0].abs().max()) == 0 and float(token[1:].abs().max()) > 0
 
 
 def test_init_state_draws_like_flax(pair):
