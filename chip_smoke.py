@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel of the port from rovr_torch/csrc with nvcc
-(one process per source, all at once), holds each against its plain
-PyTorch version at the shapes its paths give it, then drives serving
-(`rovr_torch.infer.reconstruct_clips`) at the full width of `Config()` and
-of config 5, the config-5 RL train step (`rovr_torch.train.rl.
-train_step`) and driver, evaluation, UNet pretraining, the imitation warm
-start and the four-stage pipeline, and checks that each path really went
-through the kernels: every launch count is set to 0 just before a path is
-driven and read just after. Phases:
+(one process per source, all at once, beside g++ for the frame decoder),
+holds each against its plain PyTorch version at the shapes its paths give
+it, then drives serving (`rovr_torch.infer.reconstruct_clips`) at the full
+width of `Config()` and of config 5, the config-5 RL train step
+(`rovr_torch.train.rl.train_step`) and driver, evaluation, UNet
+pretraining, the imitation warm start, the four-stage pipeline, training
+from a frame tree and reference warm starts, and checks that each path
+really went through the kernels: every launch count is set to 0 just
+before a path is driven and read just after. Phases:
 
   1. device, card name and power limit; TF32 off for the comparisons;
   2. K1 (fused conv3x3) vs its plain version at the three serving shapes,
@@ -106,7 +107,7 @@ driven and read just after. Phases:
      π₁: 60 K1, 62 K2, 20 K3, 20 K4 each) and its random-π₁ control):
      every stage's launch counts and the record's keys as the JAX `run`
      writes them; then `python -m rovr_torch pretrain`, `imitate` and
-     `pipeline` as subprocesses;
+     `pipeline` as three subprocesses at once;
  20. config-5 train steps with the frame-selection policy π₁ (use_policy1,
      ppo_policy1: PolicyNet1 32-256 on the 256^2 canvas, a 4096 -> 64 head,
      the ActionLSTM at hidden 1024) on phase 9's clips: a warm-up, then
@@ -124,13 +125,43 @@ driven and read just after. Phases:
      continuing state.step; the checkpoint's bytes beside phase 12's; then
      `python -m rovr_torch rl --ppo_policy1 --iterations 1` at Config() as
      a subprocess (exit 0, PPO/actor1_loss in its metrics.jsonl).
+ 22. a RealVSR-shaped frame tree (8 clip folders x 50 PNG frames of
+     1024x512, 16 videos, the rows encoded with all five PNG filter types by
+     an encoder in this file, the content panning) and 2 clips at 1280x720:
+     the port's decoder (csrc/frame_decode.cpp, built by g++) exact against
+     numpy at 1024x512 (the PNG and the 2x box mean), and at 1280x720 the
+     share exact and the largest gap against a float bilinear reference;
+     ms per decoded frame on one thread and across decode_clip's 8 threads,
+     sec per VideoFolderDataset and ExplicitVideoDataset item, the tree's
+     bytes;
+ 23. `rl.run` at Config() (canvas, S = T = 20, 256^2, batch 8) from the
+     tree through the DevicePrefetcher (8 workers), 6 iterations, against 6
+     on the device source: sec per iteration, the prefetcher's wait per
+     batch, 60 K1 per step in both; one train step under
+     utils.profiling.trace fed by the prefetcher while its workers decode,
+     against the same step on a device-source batch (the idle shares); 12
+     batches at depth 4 through the pinned side-stream copy, every staged
+     item bitwise equal to its host item while the consumer's stream is
+     busy; once with stage_uint8 (H2D bytes per batch, sec per iteration);
+     then `python -m rovr_torch {rl,imitate,eval,reconstruct} --root_folder`
+     as four subprocesses at once;
+ 24. reference checkpoints made from a seed at full width (torchvision
+     ResNet-50, lpips' VGG16 + lins, RAFT-small, the reference UNet,
+     PolicyNetwork2, a full `rovr` state with its prefixes in the
+     model_state_dict envelope): each kind's conversion seconds and bytes,
+     `python -m rovr_torch convert --kind <k>` of each (all at once), `rl
+     --warm_start` (its first state equal to the converted tensors, bit
+     for bit, on the card) and `eval --warm_start` with lpips and raft
+     (Eval/metric_weights_random 0).
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the rovr_torch package
 beside this file; without either it exits non-zero and prints no result.
 Writes the full record to chiprun_out/chip_smoke.json; the run directories
-of phases 12-21 go under chiprun_out/ too, their checkpoints deleted at the end.
+of phases 12-23 go under chiprun_out/ too, their checkpoints deleted at the
+end, and the frame tree and converted checkpoints of phases 22-24 are
+deleted.
 """
 
 from __future__ import annotations
@@ -1506,6 +1537,32 @@ def python_m(here, *args):
     return out.stdout, time.time() - t
 
 
+def python_m_all(here, argvs, stdouts=None):
+    """`python -m rovr_torch <argv>` for every argv at once, each in its own
+    subprocess; raises unless each exits 0. Returns {name: seconds until that
+    one exited}; fills `stdouts` {name: stdout} when given."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.time()
+
+    def one(item):
+        name, args = item
+        out = subprocess.run([sys.executable, "-m", "rovr_torch", *args], cwd=here,
+                             env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                             text=True, timeout=600)
+        return name, out, time.time() - t0
+
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        done = list(pool.map(one, argvs.items()))
+    for name, out, _ in done:
+        if out.returncode != 0:
+            raise AssertionError(f"python -m rovr_torch {' '.join(argvs[name])}: rc "
+                                 f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        if stdouts is not None:
+            stdouts[name] = out.stdout
+    return {name: s for name, _, s in done}
+
+
 def phase_cli(torch, conv, attention, cli, checkpoint, here, out_dir):
     """The command line: `rl` in this process at Config() widths, then
     `python -m rovr_torch rl` and `reconstruct --restore_from` as
@@ -1834,8 +1891,8 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
     """`pipeline.run(default_config(20, 4), ...)` with a few steps per stage:
     each stage's launch counts (the stage functions wrapped for this run
     only), the record's keys as the JAX `run` writes them; then
-    `python -m rovr_torch pretrain`, `imitate` and `pipeline` as
-    subprocesses."""
+    `python -m rovr_torch pretrain`, `imitate` and `pipeline` as three
+    subprocesses at once."""
     run_root = os.path.join(out_dir, "smoke_pipeline")
     shutil.rmtree(run_root, ignore_errors=True)
     import dataclasses
@@ -1920,22 +1977,600 @@ def phase_pipeline(torch, conv, attention, pipeline, pretrain_local, imitation, 
         f"{total_s:.1f} s; stages " + "; ".join(
             f"{n} {t:.1f} s {c}" for n, c, t, _ in stages))
 
+    # the three at once, each in a run directory of its own
     sub_root = os.path.join(run_root, "cli")
-    cli_s = {}
-    for args, want_out in ((("pretrain", "--steps", "2"), "[pretrain 1]"),
-                           (("imitate", "--steps", "2"), "[imitate 1]"),
-                           (("pipeline", "--pretrain_steps", "2", "--imitation_steps", "2",
-                             "--rl_iterations", "1", "--eval_videos", "4", "--eval_ci_clips",
-                             "4", "--eval_ci_draws", "2", "--out",
-                             os.path.join(sub_root, "record.json")), "record written")):
-        printed, secs = python_m(here, *args, "--run_dir", sub_root)
-        if want_out not in printed:
-            raise AssertionError(f"python -m rovr_torch {args[0]}: {printed[-2000:]}")
-        cli_s[args[0]] = secs
-    _drop_checkpoints(sub_root)
+    argvs = {"pretrain": ["pretrain", "--steps", "2"],
+             "imitate": ["imitate", "--steps", "2"],
+             "pipeline": ["pipeline", "--pretrain_steps", "2", "--imitation_steps", "2",
+                          "--rl_iterations", "1", "--eval_videos", "4", "--eval_ci_clips", "4",
+                          "--eval_ci_draws", "2", "--out",
+                          os.path.join(sub_root, "record.json")]}
+    want_out = {"pretrain": "[pretrain 1]", "imitate": "[imitate 1]",
+                "pipeline": "record written"}
+    printed = {}
+    cli_s = python_m_all(here, {k: a + ["--run_dir", os.path.join(sub_root, k)]
+                                for k, a in argvs.items()}, printed)
+    for k, want in want_out.items():
+        if want not in printed[k]:
+            raise AssertionError(f"python -m rovr_torch {k}: {printed[k][-2000:]}")
+        _drop_checkpoints(os.path.join(sub_root, k))
     res["cli_s"] = cli_s
     log("python -m rovr_torch " + ", ".join(f"{k} {v:.2f} s" for k, v in cli_s.items())
-        + " as subprocesses: exit 0")
+        + " as subprocesses run at once: exit 0")
+    return res
+
+
+TREE_CLIPS = 8          # RealVSR-shaped clip folders: 50 frames of 1024x512 each
+TREE_FRAMES = 50
+TREE720_CLIPS = 2       # two more at 1280x720, for the decoder's general resize
+FOLDER_ITERS = 6        # rl.run iterations from the tree, and from the device source
+UINT8_ITERS = 3         # rl.run iterations from the tree with stage_uint8
+STAGE_BATCHES = 12      # prefetched batches held bit for bit against their host items
+STAGE_DEPTH = 4
+
+
+def png_filtered(img, filters):
+    """RGB uint8 (H, W, 3) -> PNG bytes, row y filtered with filters[y %
+    len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth). The port writes
+    filter 0 only (utils/png.py); this encoder gives the decoder every type."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), x[:, :-3]])
+    ul = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])
+    f = np.asarray([filters[y % len(filters)] for y in range(h)])
+    rows = ((x - pred[f, np.arange(h)]) % 256).astype(np.uint8)
+    raw = np.hstack([f[:, None].astype(np.uint8), rows]).tobytes()
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _clip_source(seed, h, w):
+    """A clip's moving content: a frame t is a window of one textured field
+    panned by (2t, 3t) pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    H, W = h + 2 * TREE_FRAMES, w + 3 * TREE_FRAMES
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    field = np.zeros((H, W, 3), np.float32)
+    for _ in range(3):
+        fy, fx = rng.uniform(0.005, 0.06, 2)
+        field += rng.uniform(20, 45, 3) * np.sin(fy * yy + fx * xx + rng.uniform(0, 6.3))[..., None]
+    field += 128 + rng.normal(0, 12, field.shape)
+    field = np.clip(field, 0, 255).astype(np.uint8)
+    return lambda t: field[2 * t:2 * t + h, 3 * t:3 * t + w]
+
+
+def write_frame_tree(root, clips, h, w, seed):
+    """`clips` folders of TREE_FRAMES PNGs at h x w under root, every
+    filter type on each frame's rows, encoded on 8 threads (zlib releases
+    the GIL). Returns {clip: frame source}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sources = {}
+    jobs = []
+    for c in range(clips):
+        d = os.path.join(root, f"{c:03d}")
+        os.makedirs(d, exist_ok=True)
+        sources[d] = _clip_source(seed + c, h, w)
+        for t in range(TREE_FRAMES):
+            jobs.append((os.path.join(d, f"{t:08d}.png"), sources[d], t))
+
+    def one(job):
+        path, src, t = job
+        with open(path, "wb") as f:
+            f.write(png_filtered(src(t), [(t + k) % 5 for k in range(5)]))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+    return sources
+
+
+def _box2(img):
+    """The exact 2x downscale (OpenCV's INTER_AREA fast path): (a+b+c+d+2)>>2."""
+    x = img.astype(int)
+    return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2) >> 2
+            ).astype("uint8")
+
+
+def _bilinear(img, oh, ow):
+    """Float bilinear resize with half-pixel centres, taps clamped to the
+    edge, rounded: a numpy reference for the decoder's fixed-point path."""
+    import numpy as np
+
+    def taps(n_in, n_out):
+        f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        i0 = np.floor(f).astype(int)
+        a = (f - i0)[:, None]
+        return np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), a
+
+    y0, y1, ay = taps(img.shape[0], oh)
+    x0, x1, ax = taps(img.shape[1], ow)
+    x = img.astype(np.float64)
+    rows = x[y0] * (1 - ay[..., None]) + x[y1] * ay[..., None]
+    out = rows[:, x0] * (1 - ax) + rows[:, x1] * ax
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def phase_frame_tree(torch, native_loader, dataset, Config, out_dir):
+    """Phase 22: a RealVSR-shaped frame tree (8 clips x 50 PNGs at
+    1024x512, 16 videos, every PNG filter type) and two clips at 1280x720;
+    the port's decoder held against numpy references of the same frames,
+    its time per frame on one thread and across decode_clip's threads, and
+    the readers' seconds per item."""
+    import dataclasses
+
+    import numpy as np
+
+    root = os.path.join(out_dir, "smoke_tree")
+    shutil.rmtree(root, ignore_errors=True)
+    atexit.register(shutil.rmtree, root, True)
+    tree, tree720 = os.path.join(root, "LQ"), os.path.join(root, "LQ720")
+    t0 = time.time()
+    src = write_frame_tree(tree, TREE_CLIPS, 512, 1024, seed=100)
+    src720 = write_frame_tree(tree720, TREE720_CLIPS, 720, 1280, seed=200)
+    write_s = time.time() - t0
+    nbytes = {name: sum(os.path.getsize(p) for p in glob.glob(os.path.join(r, "*", "*.png")))
+              for name, r in (("1024x512", tree), ("1280x720", tree720))}
+
+    # exact at 1024x512: the PNG decode is lossless and 512 -> 256 is the 2x box mean
+    checked = 0
+    for d, s in src.items():
+        for t in (range(TREE_FRAMES) if d.endswith("000") else (0, 17, 49)):
+            path = os.path.join(d, f"{t:08d}.png")
+            frame = s(t)
+            if not np.array_equal(native_loader.decode_png(path), frame):
+                raise AssertionError(f"decode_png({path}) differs from the encoded frame")
+            for half in (0, 1):
+                got = native_loader.decode_half(path, (256, 256), half)
+                if not np.array_equal(got, _box2(frame[:, 512 * half:512 * (half + 1)])):
+                    raise AssertionError(f"decode_half({path}, half {half}) is not exact")
+                checked += 1
+    exact = total = 0
+    gap = 0
+    for d, s in src720.items():
+        for t in (0, 25, 49):
+            path = os.path.join(d, f"{t:08d}.png")
+            full = _bilinear(s(t), 512, 1024)
+            for half in (0, 1):
+                got = native_loader.decode_half(path, (256, 256), half).astype(int)
+                want = _box2(full[:, 512 * half:512 * (half + 1)]).astype(int)
+                diff = np.abs(got - want)
+                exact, total, gap = exact + int((diff == 0).sum()), total + diff.size, max(
+                    gap, int(diff.max()))
+    if gap > 1:
+        raise AssertionError(f"decode_half at 1280x720 is {gap} LSB from the float reference")
+
+    def per_frame(paths, fn):
+        t = time.time()
+        fn(paths)
+        return (time.time() - t) / len(paths) * 1e3
+
+    res = dict(write_s=write_s, tree_bytes=nbytes,
+               exact_1024x512_halves=checked,
+               share_exact_1280x720=exact / total, max_gap_1280x720=gap)
+    for name, r in (("1024x512", tree), ("1280x720", tree720)):
+        paths = sorted(glob.glob(os.path.join(r, "001", "*.png")))
+        res[f"ms_per_frame_1thread_{name}"] = per_frame(
+            paths, lambda ps: [native_loader.decode_half(p, (256, 256), 0) for p in ps])
+        res[f"ms_per_frame_8threads_{name}"] = per_frame(
+            paths, lambda ps: native_loader.decode_clip(ps, (256, 256), 0, threads=8))
+    c = Config()
+    data = dataclasses.replace(c.data, root_folder=tree)
+    for name, cls in (("video_folder", dataset.VideoFolderDataset),
+                      ("explicit", dataset.ExplicitVideoDataset)):
+        ds = cls(data, seed=0)
+        t = time.time()
+        items = [ds[i] for i in range(4)]
+        res[f"sec_per_{name}_item"] = (time.time() - t) / 4
+        if len(ds) != 2 * TREE_CLIPS or items[0][0].shape[1:] != (256, 256, 3):
+            raise AssertionError(f"{name}: {len(ds)} items of {items[0][0].shape}")
+    log(f"frame tree: {TREE_CLIPS} clips x {TREE_FRAMES} PNGs at 1024x512 "
+        f"({nbytes['1024x512'] / 1e6:.1f} MB) + {TREE720_CLIPS} at 1280x720 "
+        f"({nbytes['1280x720'] / 1e6:.1f} MB), written in {write_s:.1f} s; {checked} "
+        f"halves at 1024x512 exact against numpy; "
+        f"1280x720: share exact {exact / total:.6f}, largest gap {gap} LSB against float "
+        f"bilinear; decode_half ms per frame: "
+        + ", ".join(f"{k[14:]} {v:.2f}" for k, v in res.items() if k.startswith("ms_per"))
+        + f"; sec per item: VideoFolderDataset {res['sec_per_video_folder_item']:.3f}, "
+        f"ExplicitVideoDataset {res['sec_per_explicit_item']:.3f}")
+    return res, tree
+
+
+class KeepItems:
+    """A dataset that keeps a copy of each item it hands out, to hold the
+    prefetcher's staged tensors against; a repeated index must give the
+    same item again."""
+
+    def __init__(self, ds):
+        self.ds, self.kept = ds, {}
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        item = tuple(np.array(x, copy=True) for x in self.ds[i])
+        old = self.kept.setdefault(i, item)
+        if not all(np.array_equal(a, b) for a, b in zip(old, item)):
+            raise AssertionError(f"dataset item {i} is not deterministic")
+        return item
+
+
+def phase_folder_rl(torch, conv, attention, Config, rl, dataset, profiling, tree, here,
+                    out_dir):
+    """Phase 23: `rl.run` at Config() (canvas policy, S = T = 20, 256^2,
+    batch 8) from the frame tree through the DevicePrefetcher (8 workers)
+    against `rl.run` on the device source in the same run; one train step
+    under utils.profiling.trace fed by the prefetcher while its workers
+    decode, against the same step on a device-source batch; the staged
+    batches held bit for bit against their host items; stage_uint8; and
+    `python -m rovr_torch {rl,imitate,eval,reconstruct} --root_folder`."""
+    import dataclasses
+
+    c = Config()
+    run_root = os.path.join(out_dir, "smoke_folder")
+    shutil.rmtree(run_root, ignore_errors=True)
+    cfg = c.replace(data=dataclasses.replace(c.data, root_folder=tree),
+                    rl=dataclasses.replace(c.rl, batch_size=8),
+                    run=dataclasses.replace(c.run, run_dir=run_root, log_every=1,
+                                            checkpoint_every=1000))
+    b, s = 8, cfg.rl.vid_length
+
+    def drive(name, cfg_, iters, **kw):
+        marks = []
+
+        def log_cb(i, metrics):
+            torch.cuda.synchronize()
+            marks.append((time.time(), _counts(conv, attention), _finite_metrics(metrics)))
+
+        torch.cuda.synchronize()
+        _zero_counts(conv, attention)
+        t0 = time.time()
+        state = rl.run(cfg_, iterations=iters, log_cb=log_cb, device="cuda", **kw)
+        torch.cuda.synchronize()
+        if state.step != iters or len(marks) != iters:
+            raise AssertionError(f"rl.run ({name}): state.step {state.step}, {len(marks)} logs")
+        prev = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+        for i, (_, counts, _) in enumerate(marks):
+            d = {k: counts[k] - prev[k] for k in counts}
+            if d != {"K1": 3 * cfg_.rl.time_steps, "K2": 0, "K3": 0, "K4": 0}:
+                raise AssertionError(f"rl.run ({name}) iteration {i} launched {d}")
+            prev = counts
+        iter_s = [marks[0][0] - t0] + [marks[i][0] - marks[i - 1][0] for i in range(1, iters)]
+        out = dict(iter_s=iter_s, sec_per_iteration=_median(iter_s[1:]),
+                   k1_per_step=3 * cfg_.rl.time_steps, total_s=time.time() - t0)
+        if "dataset" in kw:
+            out["prefetch_wait_s"] = [m[2]["Data/prefetch_wait_s"] for m in marks]
+        return out
+
+    res = {}
+    res["folder"] = drive("folder", cfg, FOLDER_ITERS,
+                          dataset=dataset.VideoFolderDataset(cfg.data, seed=0))
+    res["device_source"] = drive("device source", cfg, FOLDER_ITERS)
+    cfg8 = cfg.replace(data=dataclasses.replace(cfg.data, stage_uint8=True))
+    res["stage_uint8"] = drive("stage_uint8", cfg8, UINT8_ITERS,
+                               dataset=dataset.VideoFolderDataset(cfg8.data, seed=0))
+    clip = b * 2 * s * 256 * 256 * 3    # elements staged per batch: two clips an item
+    res["h2d_bytes_per_batch"] = {"float32": 4 * clip, "uint8": clip}
+    _drop_checkpoints(run_root)
+
+    # one step under the profiler, the prefetcher's workers decoding meanwhile
+    mods = rl.make_modules(cfg, device="cuda")
+    state = rl.init_state(cfg, mods, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ds = rl.ClipPairs(dataset.VideoFolderDataset(cfg.data, seed=0), s)
+    n_items = 8 * b
+    p = dataset.DevicePrefetcher(ds, indices=[i % len(ds) for i in range(n_items)],
+                                 num_workers=cfg.data.num_workers, depth=n_items, device="cuda")
+    profiles = {}
+    try:
+        items = iter(p)
+
+        def folder_batch():
+            got = [next(items) for _ in range(b)]
+            return tuple(torch.stack([x[f] for x in got]) for f in (0, 1))
+
+        rl.train_step(state, mods, cfg, *folder_batch(), generator=gen)   # warm-up
+        video, org = folder_batch()
+        trace_dir = os.path.join(run_root, "trace_folder")
+        workers_alive = [sum(t.is_alive() for t in p._workers)]
+        with profiling.trace(trace_dir):
+            rl.train_step(state, mods, cfg, video, org, generator=gen)
+        workers_alive.append(sum(t.is_alive() for t in p._workers))
+        profiles["folder"] = profiling.analyze_trace(trace_dir)
+    finally:
+        p.close()
+    src = rl.DeviceSyntheticSource(cfg, b, device="cuda")
+    v, o, _ = src.next(0)
+    rl.train_step(state, mods, cfg, v, o, generator=gen)
+    trace_dir = os.path.join(run_root, "trace_device")
+    with profiling.trace(trace_dir):
+        rl.train_step(state, mods, cfg, v, o, generator=gen)
+    profiles["device_source"] = profiling.analyze_trace(trace_dir)
+    for name, r in profiles.items():
+        os.remove(r["trace"])
+        r["top_device"], r["top_host"] = r["top_device"][:10], r["top_host"][:10]
+    res["profile"] = profiles
+    res["workers_alive_before_after_profiled_step"] = workers_alive
+    del mods, state
+    torch.cuda.empty_cache()
+
+    # the staged batches, bit for bit, the consumer's stream kept busy
+    keep = KeepItems(ds)
+    order = [i % len(ds) for i in range(STAGE_BATCHES * b)]
+    p = dataset.DevicePrefetcher(keep, indices=order, num_workers=cfg.data.num_workers,
+                                 depth=STAGE_DEPTH, device="cuda")
+    busy = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    bad = n_seen = 0
+    t0 = time.time()
+    try:
+        for k, item in enumerate(p):
+            for _ in range(8):
+                busy = torch.tanh(busy @ busy)
+            want = keep.kept[order[k]]
+            bad += sum(not torch.equal(x.cpu(), torch.from_numpy(w)) for x, w in zip(item, want))
+            n_seen += 1
+            del item
+    finally:
+        p.close()
+    if bad or n_seen != len(order):
+        raise AssertionError(f"prefetcher staging: {bad} tensors differ from their host "
+                             f"items, {n_seen} of {len(order)} items seen")
+    res["staged_items_bitwise_equal"] = n_seen
+    res["staging_check_s"] = time.time() - t0
+
+    # the command line over the tree, the four subprocesses at once
+    cli_root = os.path.join(run_root, "cli")
+    frames = os.path.join(cli_root, "frames")
+    argvs = {
+        "rl": ["rl", "--root_folder", tree, "--iterations", "2", "--run_dir", cli_root],
+        "imitate": ["imitate", "--root_folder", tree, "--steps", "2", "--run_dir", cli_root],
+        "eval": ["eval", "--root_folder", tree, "--num_videos", "2", "--run_dir", cli_root],
+        "reconstruct": ["reconstruct", "--root_folder", tree, "--num_clips", "2", "--out",
+                        frames, "--run_dir", cli_root],
+    }
+    res["cli_s"] = python_m_all(here, argvs)
+    for experiment in ("rovr_rl", "warm_start_pn2", "eval"):
+        _run_records(cli_root, experiment)
+    n_png = len(glob.glob(os.path.join(frames, "*", "*.png")))
+    if n_png != 2 * cfg.rl.vid_length:
+        raise AssertionError(f"reconstruct --root_folder wrote {n_png} frames")
+    shutil.rmtree(frames)
+    _drop_checkpoints(cli_root)
+    f, d = res["folder"], res["device_source"]
+    pf, pd = profiles["folder"], profiles["device_source"]
+    log(f"rl.run from the tree (Config(), batch 8, {FOLDER_ITERS} iterations, 8 workers): "
+        f"{f['sec_per_iteration']:.3f} s per iteration (each "
+        + ", ".join(f"{x:.3f}" for x in f["iter_s"]) + "), prefetcher wait per batch "
+        + ", ".join(f"{x:.4f}" for x in f["prefetch_wait_s"])
+        + f" s; the device source {d['sec_per_iteration']:.3f} s per iteration (each "
+        + ", ".join(f"{x:.3f}" for x in d["iter_s"]) + f"); K1 {f['k1_per_step']} per step in "
+        f"both; stage_uint8 {res['stage_uint8']['sec_per_iteration']:.3f} s per iteration, "
+        f"wait " + ", ".join(f"{x:.4f}" for x in res["stage_uint8"]["prefetch_wait_s"])
+        + f" s, H2D {res['h2d_bytes_per_batch']['uint8'] / 1e6:.1f} MB per batch "
+        f"(float32 {res['h2d_bytes_per_batch']['float32'] / 1e6:.1f} MB)")
+    log(f"profiled step fed by the prefetcher ({workers_alive[0]} of 8 workers decoding at its "
+        f"start, {workers_alive[1]} at its end): wall "
+        f"{pf['wall_ms']:.1f} ms, device busy {pf['busy_ms']:.1f} ms, idle share "
+        f"{pf['idle_share']:.3f}; fed by the device source: wall {pd['wall_ms']:.1f} ms, busy "
+        f"{pd['busy_ms']:.1f} ms, idle share {pd['idle_share']:.3f}; {n_seen} staged items "
+        f"bitwise equal to their host items ({STAGE_BATCHES} batches, depth {STAGE_DEPTH}); "
+        "cli --root_folder (4 at once): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["cli_s"].items()))
+    return res
+
+
+def _meta_shapes(torch, make):
+    """{name: shape} of a module's state dict, built on the meta device."""
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in make().state_dict().items()}
+
+
+def _reference_name(kind, name):
+    """The reference's key (torchvision, lpips, the reference UNet and
+    PolicyNetwork2) of the port's state-dict entry `name`."""
+    import re
+
+    if kind == "resnet50":
+        name = re.sub(r"layer(\d)_(\d+)", r"layer\1.\2", name)
+        return name.replace("conv_down", "downsample.0").replace("bn_down", "downsample.1")
+    if kind == "policy2":
+        m = re.fullmatch(r"(convs|norms)\.(\d)\.(\w+)", name)
+        return (f"video_conv.{4 * int(m.group(2)) + (m.group(1) == 'norms')}.{m.group(3)}"
+                if m else name)
+    if kind == "vgg_lpips":
+        from rovr_torch.models.vgg_lpips import _VGG16_CONVS
+
+        m = re.fullmatch(r"vgg\.conv(\d)_(\d)\.(\w+)", name)
+        if m:
+            s, c = int(m.group(1)), int(m.group(2))
+            return f"net.slice{s}.{_VGG16_CONVS[s - 1][c - 1]}.{m.group(3)}"
+        return f"{name}.model.1.weight"
+    if kind == "raft":
+        name = name.replace("fnet.", "feature_encoder.").replace("cnet.", "context_encoder.")
+        for pat, rep in ((r"layer(\d)_(\d)\.conv(\d)", r"layer\1.\2.convnormrelu\3.0"),
+                         (r"layer(\d)_(\d)\.norm(\d)", r"layer\1.\2.convnormrelu\3.1"),
+                         (r"layer(\d)_(\d)\.conv_down", r"layer\1.\2.downsample.0"),
+                         (r"layer(\d)_(\d)\.norm_down", r"layer\1.\2.downsample.1"),
+                         (r"encoder\.conv1\.", "encoder.convnormrelu.0."),
+                         (r"encoder\.norm1\.", "encoder.convnormrelu.1."),
+                         (r"encoder\.conv2\.", "encoder.conv.")):
+            name = re.sub(pat, rep, name)
+        for port, ref in (("motion.convc1", "motion_encoder.convcorr1.0"),
+                          ("motion.convf1", "motion_encoder.convflow1.0"),
+                          ("motion.convf2", "motion_encoder.convflow2.0"),
+                          ("motion.conv.", "motion_encoder.conv.0."),
+                          ("gru.", "recurrent_block.convgru."), ("update.", "update_block.")):
+            name = name.replace(port, ref)
+    return name
+
+
+def reference_state_dicts(torch, seed):
+    """Reference-layout state dicts at full width, made from `seed`: kind ->
+    {reference key: tensor}, with lecun-scaled kernels, positive variances
+    and norm scales near 1, and LPIPS' non-negative heads."""
+    from rovr_torch.models import local_net, policy_net_2, raft, resnet, vgg_lpips
+
+    f32 = torch.float32
+    makers = {
+        "local_net": lambda: local_net.LocalNetUNet(dtype=f32),
+        "policy2": lambda: policy_net_2.PolicyNet2(dtype=f32),
+        "critic2": lambda: policy_net_2.PolicyNet2(dtype=f32, is_critic=True),
+        "resnet50": lambda: resnet.ResNet50(dtype=f32),
+        "vgg_lpips": lambda: vgg_lpips.LPIPS(dtype=f32),
+        "raft": lambda: raft.RAFTSmall(dtype=f32),
+    }
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for kind, make in makers.items():
+        sd = {}
+        for name, shape in _meta_shapes(torch, make).items():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.startswith("lin"):
+                v = (0.1 * torch.rand(shape, generator=g)).reshape((1,) + shape + (1, 1))
+            elif leaf == "running_var" or (len(shape) == 1 and leaf == "weight"
+                                           and ("bn" in name or "norm" in name)):
+                v = 0.5 + 1.5 * torch.rand(shape, generator=g)
+            elif len(shape) == 1:
+                v = 0.2 * torch.rand(shape, generator=g) - 0.1
+            else:
+                v = torch.randn(shape, generator=g) / math.sqrt(math.prod(shape[1:]))
+            sd[_reference_name("policy2" if kind == "critic2" else kind, name)] = v
+        out[kind] = sd
+    return out
+
+
+def phase_convert(torch, cli, convert, rl, evaluate, here, out_dir):
+    """Phase 24: reference checkpoints made from a seed at full width (the
+    torchvision ResNet-50, lpips' VGG16 + lins, RAFT-small, the reference
+    UNet, PolicyNetwork2, and a full `rovr` state with its prefixes in the
+    model_state_dict envelope), `python -m rovr_torch convert --kind <k>` of
+    each, then `rl --warm_start` (the state's tensors equal the converted
+    ones bit for bit on the card before the first step) and `eval
+    --warm_start` with lpips and raft (Eval/metric_weights_random 0)."""
+    root = os.path.join(out_dir, "smoke_convert")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    atexit.register(shutil.rmtree, root, True)
+    t0 = time.time()
+    refs = reference_state_dicts(torch, seed=24)
+    full = {f"local_net.{k}": v for k, v in refs["local_net"].items()}
+    full.update({f"actor2.{k}": v for k, v in refs["policy2"].items()})
+    full.update({f"critic2.{k}": v for k, v in refs["critic2"].items()})
+    full.update({f"video_encoder.resnet.{k}": v for k, v in refs["resnet50"].items()})
+    full.update({f"lpips.{k}": v for k, v in refs["vgg_lpips"].items()})
+    files = {"rovr": {"epoch": 3, "model_state_dict": full},
+             "local_net": {"epoch": 2000, "model_state_dict": refs["local_net"]},
+             "policy2": refs["policy2"], "resnet50": refs["resnet50"],
+             "vgg_lpips": refs["vgg_lpips"], "raft": refs["raft"]}
+    paths = {}
+    for kind, obj in files.items():
+        paths[kind] = os.path.join(root, f"{kind}.pt")
+        torch.save(obj, paths[kind])
+    make_s = time.time() - t0
+    res = dict(make_and_save_s=make_s, kinds={})
+    # in process: each kind's conversion and save, timed
+    for kind, path in paths.items():
+        t = time.time()
+        init_params, report = convert.convert_reference_checkpoint(kind, path)
+        conv_s = time.time() - t
+        if report["skipped"] or not init_params:
+            raise AssertionError(f"convert {kind}: {report}")
+        t = time.time()
+        d = convert.save_converted(os.path.join(root, f"inproc_{kind}"), init_params)
+        res["kinds"][kind] = dict(
+            convert_s=conv_s, save_s=time.time() - t, converted=report["converted"],
+            ckpt_bytes=os.path.getsize(path),
+            converted_bytes=os.path.getsize(os.path.join(d, "0", "state.pt")))
+        shutil.rmtree(d)
+    # the command line, every kind at once
+    outs = {}
+    cli_s = python_m_all(here, {kind: ["convert", "--kind", kind, "--ckpt", path, "--out",
+                                       os.path.join(root, f"out_{kind}")]
+                                for kind, path in paths.items()}, outs)
+    for kind, stdout in outs.items():
+        if "skipped" in stdout:
+            raise AssertionError(f"python -m rovr_torch convert --kind {kind}: {stdout[-2000:]}")
+        res["kinds"][kind]["cli_s"] = cli_s[kind]
+    loaded = convert.load_converted(os.path.join(root, "out_rovr"))
+
+    # rl --warm_start: the first state holds the converted tensors, bit for bit
+    checked = {}
+    real_init = rl.init_state
+
+    def init_and_check(*a, **kw):
+        state = real_init(*a, **kw)
+        for field in ("local_net_params", "actor2_params", "critic2_params", "lpips_params"):
+            got = getattr(state, field)
+            if set(got) != set(loaded[field]) or not all(
+                    got[k].is_cuda and torch.equal(got[k].cpu(), v)
+                    for k, v in loaded[field].items()):
+                raise AssertionError(f"rl --warm_start: {field} differs from the converted one")
+            checked[field] = len(got)
+        bb = loaded["vp_backbone_params"]
+        if not all(torch.equal(state.vp_params[f"backbone.{k}"].cpu(), v) for k, v in bb.items()):
+            raise AssertionError("rl --warm_start: the VideoProcessor's backbone differs")
+        checked["vp_backbone_params"] = len(bb)
+        return state
+
+    rl.init_state = init_and_check
+    try:
+        t = time.time()
+        rc = cli.main(["rl", "--warm_start", os.path.join(root, "out_rovr"), "--iterations", "1",
+                       "--run_dir", os.path.join(root, "runs")])
+        res["rl_warm_start_s"] = time.time() - t
+    finally:
+        rl.init_state = real_init
+    if rc != 0 or len(checked) != 5:
+        raise AssertionError(f"rl --warm_start: rc {rc}, checked {checked}")
+    # eval --warm_start: lpips and raft converted into one directory
+    metric = os.path.join(root, "out_vgg_lpips")
+    if cli.main(["convert", "--kind", "raft", "--ckpt", paths["raft"], "--out", metric]) != 0:
+        raise AssertionError("convert --kind raft into the lpips directory failed")
+    means = []
+    real_run = evaluate.run
+    evaluate.run = lambda *a, **kw: means.append(real_run(*a, **kw)) or means[-1]
+    try:
+        t = time.time()
+        rc = cli.main(["eval", "--warm_start", metric, "--num_videos", "1",
+                       "--run_dir", os.path.join(root, "runs")])
+        res["eval_warm_start_s"] = time.time() - t
+    finally:
+        evaluate.run = real_run
+    m = means[0]
+    if rc != 0 or (m["Eval/metric_weights_random"], m["Eval/lpips_weights_random"],
+                   m["Eval/raft_weights_random"]) != (0.0, 0.0, 0.0):
+        raise AssertionError(f"eval --warm_start: rc {rc}, weights marks "
+                             f"{[(k, v) for k, v in m.items() if 'random' in k]}")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"eval --warm_start: non-finite metrics {m}")
+    res["rl_warm_start_checked"] = checked
+    res["eval_means"] = m
+    shutil.rmtree(root)
+    log("convert: " + "; ".join(
+        f"{k} {v['convert_s']:.2f} s (+save {v['save_s']:.2f} s, CLI {v['cli_s']:.1f} s), "
+        f"{v['ckpt_bytes'] / 1e6:.1f} -> {v['converted_bytes'] / 1e6:.1f} MB"
+        for k, v in res["kinds"].items())
+        + f"; rl --warm_start {res['rl_warm_start_s']:.1f} s, its first state equal to the "
+        f"converted tensors ({checked}); eval --warm_start (lpips + raft) "
+        f"{res['eval_warm_start_s']:.1f} s, Eval/metric_weights_random 0")
     return res
 
 
@@ -1955,12 +2590,12 @@ def main() -> int:
 
     from rovr_torch import cli, infer
     from rovr_torch.config import Config
-    from rovr_torch.data import corruption, device_synthetic, synthetic
+    from rovr_torch.data import corruption, dataset, device_synthetic, native_loader, synthetic
     from rovr_torch.models.layers import flax_init_state
     from rovr_torch.models.local_net import LocalNetUNet
     from rovr_torch.ops import attention, conv, cuda_build
     from rovr_torch.train import evaluate, imitation, pipeline, pretrain_local, rl
-    from rovr_torch.utils import checkpoint
+    from rovr_torch.utils import checkpoint, convert, profiling
 
     t_start = time.time()
     card = card_line()
@@ -1972,11 +2607,12 @@ def main() -> int:
     log("TF32 off for cuDNN convs and matmuls (f32 references run in full f32)")
 
     t0 = time.time()
-    logs = cuda_build.build(["fused_conv3x3", "flash_attention"])
+    logs = cuda_build.build(["fused_conv3x3", "flash_attention", "frame_decode"])
     build_s = time.time() - t0
-    log(f"nvcc build (both sources at once): {build_s:.1f} s")
+    log(f"build (nvcc for both CUDA sources, g++ for the frame decoder, all at once): "
+        f"{build_s:.1f} s")
     ptxas = {}
-    label = {"fused_conv3x3": "K1", "flash_attention": "K2-K4"}
+    label = {"fused_conv3x3": "K1", "flash_attention": "K2-K4", "frame_decode": "decoder"}
     for name, text in logs.items():
         kernel = None
         for line in text.splitlines():
@@ -2060,6 +2696,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rl_run5_pi1 = timed(phase_rl_run5_pi1, torch, conv, attention, rl, checkpoint, cfg5,
                         ClipSource(video5, org5, masks5), here, out_dir, rl_run5)
+    del video5, org5, masks5, u8_5, state_run5, state5
+    torch.cuda.empty_cache()
+    frame_tree, tree = timed(phase_frame_tree, torch, native_loader, dataset, Config, out_dir)
+    folder_rl = timed(phase_folder_rl, torch, conv, attention, Config, rl, dataset, profiling,
+                      tree, here, out_dir)
+    torch.cuda.empty_cache()
+    convert_res = timed(phase_convert, torch, cli, convert, rl, evaluate, here, out_dir)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -2154,11 +2797,12 @@ def main() -> int:
                   train5=train5, split_train5=split5, profile_train5=profile5,
                   rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
                   source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
-                  train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, phase_seconds=phase_s,
+                  train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, frame_tree=frame_tree,
+                  folder_rl=folder_rl, convert=convert_res, phase_seconds=phase_s,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"chip_smoke: all phases passed in {record['seconds']:.1f} s (nvcc {build_s:.1f} s; "
+    log(f"chip_smoke: all phases passed in {record['seconds']:.1f} s (build {build_s:.1f} s; "
         + ", ".join(f"{k[6:]} {v:.1f}" for k, v in phase_s.items()) + ")")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")

@@ -5,17 +5,20 @@ Subcommands `rl` (RL training, `train.rl.run`), `pretrain` (the UNet,
 `train.pretrain_local.run`), `imitate` (the warm start of the context
 policy, `train.imitation.run`), `pipeline` (pretrain -> imitate -> RL ->
 held-out eval, `train.pipeline.run`), `eval` (agentic against sequential
-reconstruction, `train.evaluate.run`) and `reconstruct` (inference,
-`infer.run`), with the JAX package's flags and defaults, built on
+reconstruction, `train.evaluate.run`), `reconstruct` (inference,
+`infer.run`) and `convert` (a reference torch checkpoint -> a warm start,
+`utils.convert`), with the JAX package's flags and defaults, built on
 `Config()` (`pipeline`: on `pipeline.default_config`) as it builds them.
-Without a dataset they draw synthetic clips made on the device. `--device`
-picks where the port runs: the GPU unless `cpu` is asked for; it never
-falls back. `convert` is not ported yet and says so.
+`--device` picks where the port runs: the GPU unless `cpu` is asked for; it
+never falls back.
 
-Flags whose machinery is not ported raise NotImplementedError: folder
-datasets (`--root_folder` naming a directory), `--warm_start` (it reads the
-JAX `convert`'s Orbax output) and `--data_parallel` > 1; each error names
-its ROADMAP.md item.
+Data: `--root_folder` naming a directory of clip folders is read by the
+explicit-teacher reader (`rl`, `imitate`, `eval`) or the random-mask one
+(`reconstruct`), as in the JAX CLI; otherwise the drivers draw synthetic
+clips made on the device. `pretrain` and `pipeline` read no folder (neither
+does the JAX package's) and refuse `--root_folder`. `--warm_start` (`rl`,
+`eval`) reads a directory `convert` wrote. `--data_parallel` > 1 raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ from typing import List, Optional
 
 from rovr_torch.config import Config
 
-NOT_PORTED = {
-    "convert": "ROADMAP.md Queue 1 item 7",
-}
+# the init_state keyword arguments a --warm_start directory may plug in
+WARM_START_KWARGS = {"local_net_params", "vp_params", "actor2_params", "lpips_params",
+                     "critic2_params", "actor1_params", "vp_backbone_params"}
 
 
 def _base_parser(p: argparse.ArgumentParser) -> None:
@@ -55,20 +58,40 @@ def _apply_base(cfg: Config, args) -> Config:
     return cfg.replace(data=data, run=run)
 
 
-def _check_dataset(args) -> None:
-    """The JAX CLI reads a frame-folder dataset when --root_folder names a
-    directory; the port has no folder readers yet."""
+def _dataset(cfg: Config, args, explicit: bool = True):
+    """The folder dataset when --root_folder names a directory, else None
+    (the drivers then draw synthetic clips on the device)."""
+    from rovr_torch.data.dataset import ExplicitVideoDataset, VideoFolderDataset
+
     if args.root_folder and os.path.isdir(args.root_folder):
-        raise NotImplementedError(
-            "frame-folder datasets are not in the port yet (ROADMAP.md Queue 1 "
-            "item 6); without --root_folder the port uses synthetic clips")
+        ds = ExplicitVideoDataset if explicit else VideoFolderDataset
+        return ds(cfg.data, seed=cfg.run.seed)
+    return None
 
 
-def _check_warm_start(args) -> None:
-    if args.warm_start:
-        raise NotImplementedError(
-            "--warm_start reads the Orbax output of `rovr_tpu convert`; the port's "
-            "convert is not written yet (ROADMAP.md Queue 1 item 7)")
+def _refuse_folder(cmd: str, args) -> None:
+    if args.root_folder:
+        raise ValueError(
+            f"`{cmd}` reads no frame folders: it trains on synthetic clips, as the "
+            f"JAX package's `{cmd}` does (it ignores --root_folder); drop --root_folder")
+
+
+def _warm_start(path: Optional[str], take_raft: bool):
+    """(init_state keyword arguments, raft_params if `take_raft`) of a
+    `convert` directory, printing what it plugs in and what it skips;
+    (None, None) without one."""
+    if not path:
+        return None, None
+    from rovr_torch.utils import convert
+
+    loaded = convert.load_converted(path) or {}
+    raft_params = loaded.pop("raft_params", None) if take_raft else None
+    init_params = {k: v for k, v in loaded.items() if k in WARM_START_KWARGS}
+    for k in sorted(set(loaded) - WARM_START_KWARGS):
+        print(f"[warm_start] skipping {k} (no init_state kwarg)")
+    print("[warm_start] plugging in: " + ", ".join(
+        sorted(init_params) + (["raft_params"] if raft_params is not None else [])))
+    return init_params, raft_params
 
 
 def _print_metrics(tag: str):
@@ -96,7 +119,8 @@ def rl_config(argv: List[str]):
                         "UNet pass)")
     p.add_argument("--iterations", type=int, default=400, help="hard stop")
     p.add_argument("--warm_start", type=str, default=None,
-                   help="directory written by `rovr_tpu convert` (not ported)")
+                   help="directory written by `python -m rovr_torch convert`: its "
+                        "state dicts plug into init_state")
     _base_parser(p)
     args = p.parse_args(argv)
     cfg = _apply_base(Config(), args)
@@ -115,12 +139,11 @@ def rl_config(argv: List[str]):
 def cmd_rl(argv: List[str]) -> int:
     """RL training."""
     cfg, args = rl_config(argv)
-    _check_warm_start(args)
-    _check_dataset(args)
+    init_params, _ = _warm_start(args.warm_start, take_raft=False)
     from rovr_torch.train import rl
 
-    rl.run(cfg, iterations=args.iterations, log_cb=_print_metrics("rl"),
-           device=args.device)
+    rl.run(cfg, dataset=_dataset(cfg, args), iterations=args.iterations,
+           log_cb=_print_metrics("rl"), init_params=init_params, device=args.device)
     return 0
 
 
@@ -141,7 +164,7 @@ def pretrain_config(argv: List[str]):
 def cmd_pretrain(argv: List[str]) -> int:
     """Local-net UNet pretraining (train_local_net_unet.py)."""
     cfg, args = pretrain_config(argv)
-    _check_dataset(args)
+    _refuse_folder("pretrain", args)
     from rovr_torch.train import pretrain_local
 
     pretrain_local.run(cfg, steps=args.steps, log_cb=_print_metrics("pretrain"),
@@ -165,11 +188,10 @@ def imitate_config(argv: List[str]):
 def cmd_imitate(argv: List[str]) -> int:
     """Imitation warm start of the context policy (imitation_learning.py)."""
     cfg, args = imitate_config(argv)
-    _check_dataset(args)
     from rovr_torch.train import imitation
 
-    imitation.run(cfg, steps=args.steps, log_cb=_print_metrics("imitate"),
-                  device=args.device)
+    imitation.run(cfg, dataset=_dataset(cfg, args), steps=args.steps,
+                  log_cb=_print_metrics("imitate"), device=args.device)
     return 0
 
 
@@ -211,7 +233,7 @@ def pipeline_config(argv: List[str]):
 def cmd_pipeline(argv: List[str]) -> int:
     """The learning pipeline: pretrain -> imitate -> RL -> held-out eval."""
     cfg, args = pipeline_config(argv)
-    _check_dataset(args)
+    _refuse_folder("pipeline", args)
     from rovr_torch.train import pipeline
 
     pipeline.run(
@@ -232,7 +254,10 @@ def eval_config(argv: List[str]):
     p.add_argument("--vid_length", type=int, default=20)
     p.add_argument("--flow_size", type=int, default=256)
     p.add_argument("--warm_start", type=str, default=None,
-                   help="directory written by `rovr_tpu convert` (not ported)")
+                   help="directory written by `python -m rovr_torch convert`: its "
+                        "lpips_params/raft_params become the metric nets (the only "
+                        "way the weight-dependent metrics print without --force) and "
+                        "its model state dicts plug into init_state")
     p.add_argument("--force", action="store_true",
                    help="print the weight-dependent metrics (flow_recovery_*, "
                         "lpips_*) even under random metric weights")
@@ -250,14 +275,15 @@ def eval_config(argv: List[str]):
 def cmd_eval(argv: List[str]) -> int:
     """Reconstruction eval: agentic against sequential flow recovery."""
     cfg, args = eval_config(argv)
-    _check_warm_start(args)
-    _check_dataset(args)
+    init_params, raft_params = _warm_start(args.warm_start, take_raft=True)
     from rovr_torch.train import evaluate
 
-    means = evaluate.run(cfg, num_videos=args.num_videos, flow_size=args.flow_size,
-                         device=args.device)
+    means = evaluate.run(cfg, dataset=_dataset(cfg, args), num_videos=args.num_videos,
+                         flow_size=args.flow_size, init_params=init_params,
+                         raft_params=raft_params, device=args.device)
     # Random metric weights: flow recovery and LPIPS are not comparable to
-    # the poster's numbers, so they print only with --force.
+    # the poster's numbers, so they print only with --force. evaluate.run
+    # derives the mark from what was loaded.
     untrusted = means.get("Eval/metric_weights_random", 1.0) == 1.0 and not args.force
     withheld = []
     for k, v in sorted(means.items()):
@@ -268,7 +294,8 @@ def cmd_eval(argv: List[str]) -> int:
     if withheld:
         print(f"[rovr_torch.eval] {len(withheld)} weight-dependent metrics withheld "
               "(random VGG/RAFT weights; not poster-comparable). Pass --force to "
-              "print them.")
+              "print them, or load converted weights with --warm_start "
+              "(convert --kind vgg_lpips / raft).")
     return 0
 
 
@@ -302,32 +329,62 @@ def cmd_reconstruct(argv: List[str]) -> int:
         raise NotImplementedError(
             "--data_parallel > 1: data-parallel serving is not in the port yet "
             "(ROADMAP.md Queue 1 item 10)")
-    _check_dataset(args)
     from rovr_torch import infer
 
-    summary = infer.run(cfg, restore_from=args.restore_from, num_clips=args.num_clips,
-                        out_dir=args.out, device=args.device)
+    summary = infer.run(cfg, restore_from=args.restore_from,
+                        dataset=_dataset(cfg, args, explicit=False),
+                        num_clips=args.num_clips, out_dir=args.out, device=args.device)
     for k, v in summary.items():
         print(f"{k}: {v}")
     return 0
 
 
+def cmd_convert(argv: List[str]) -> int:
+    """A reference torch checkpoint -> a warm-start directory for
+    `--warm_start` (utils.convert): local_net (the UNet pretrain), policy2
+    (imitation), policy1, rovr (the full RL state), and the pretrained
+    metric nets (torchvision resnet50 / raft_small, pip lpips' VGG)."""
+    from rovr_torch.utils import convert
+
+    p = argparse.ArgumentParser("rovr_torch convert")
+    p.add_argument("--kind", choices=convert.KINDS, required=True)
+    p.add_argument("--ckpt", type=str, required=True,
+                   help="torch .pt/.pth checkpoint or state-dict file")
+    p.add_argument("--out", type=str, required=True,
+                   help="output directory (a step-0 checkpoint, torch.save); state "
+                        "dicts already converted there are kept")
+    args = p.parse_args(argv)
+
+    init_params, report = convert.convert_reference_checkpoint(args.kind, args.ckpt)
+    for name in report["converted"]:
+        print(f"[convert] converted: {name}")
+    for note in report["skipped"]:
+        print(f"[convert] skipped: {note}")
+    if not init_params:
+        print("[convert] nothing converted: wrong --kind for this file?")
+        return 1
+    if os.path.isdir(args.out):   # a second kind joins the first (e.g. vgg_lpips + raft)
+        kept = {k: v for k, v in (convert.load_converted(args.out) or {}).items()
+                if k not in init_params}
+        if kept:
+            print(f"[convert] keeping from {args.out}: {sorted(kept)}")
+        init_params = {**kept, **init_params}
+    print(f"[convert] written to {convert.save_converted(args.out, init_params)}")
+    return 0
+
+
 COMMANDS = {"rl": cmd_rl, "pretrain": cmd_pretrain, "imitate": cmd_imitate,
-            "eval": cmd_eval, "pipeline": cmd_pipeline, "reconstruct": cmd_reconstruct}
+            "eval": cmd_eval, "pipeline": cmd_pipeline, "reconstruct": cmd_reconstruct,
+            "convert": cmd_convert}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m rovr_torch {" + ",".join(COMMANDS) + "} [flags]")
-        print("not ported yet: " + ", ".join(f"{c} ({w})" for c, w in NOT_PORTED.items()))
         print(__doc__)
         return 0
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        print(f"{cmd} is not in the port yet ({NOT_PORTED[cmd]}); "
-              f"`python -m rovr_tpu {cmd}` runs it on JAX")
-        return 2
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}; choose from {list(COMMANDS)}")
         return 2

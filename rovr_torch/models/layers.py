@@ -313,6 +313,12 @@ class DenseGeneral(nn.Module):
         return y.reshape(batch + self.out_shape)
 
 
+def reference_tensor(state_dict, name: str) -> torch.Tensor:
+    """state_dict[name] (a tensor or an array) as a new float32 CPU tensor:
+    the reference converters' read; a missing name raises KeyError."""
+    return torch.as_tensor(state_dict[name], dtype=torch.float32, device="cpu").clone()
+
+
 def standardize(x: torch.Tensor, dim, eps: float, keepdim: bool = True):
     """(x - mean) / (std + eps) with unbiased std; sqrt(var + 1e-12) keeps
     the gradient of a constant column finite (layers.py rationale)."""

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from rovr_torch.models.layers import (
-    Conv2d, ConvTranspose2d, FusedConv3x3, max_pool,
+    Conv2d, ConvTranspose2d, FusedConv3x3, max_pool, reference_tensor,
 )
 
 
@@ -70,3 +70,15 @@ class LocalNetUNet(nn.Module):
 
         out = self.conv8(y)
         return torch.sigmoid(out.float()).permute(0, 2, 3, 1)
+
+
+def convert_torch_state_dict(state_dict) -> dict:
+    """A reference LocalNetworkUNetNorm checkpoint (local_net.py:12-39) ->
+    this module's state dict. The names (conv1..conv8, upconv1..upconv3) are
+    the reference's and both sides keep torch layouts (OIHW convs, IOHW
+    transposed convs), so each tensor is taken as it is. The reference's
+    BatchNorm parameters are dead (never applied in its forward,
+    local_net.py:52-71) and are dropped."""
+    names = [f"conv{i}" for i in range(1, 9)] + [f"upconv{i}" for i in range(1, 4)]
+    return {f"{n}.{leaf}": reference_tensor(state_dict, f"{n}.{leaf}")
+            for n in names for leaf in ("weight", "bias")}

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rovr_torch.models.layers import (
-    BatchStatNorm, Conv2d, ConvBlock, UpConvBlock, max_pool, standardize,
+    BatchStatNorm, Conv2d, ConvBlock, UpConvBlock, max_pool, reference_tensor,
+    standardize,
 )
 
 
@@ -147,7 +148,7 @@ def convert_torch_state_dict(state_dict) -> dict:
     BatchNorm2d running statistics are dropped (the reference never leaves
     train mode, see layers.BatchStatNorm)."""
     def t(name):
-        return torch.as_tensor(state_dict[name], dtype=torch.float32).clone()
+        return reference_tensor(state_dict, name)
 
     def block(dst, conv, bn, conv_name="Conv_0"):
         return {f"{dst}.{conv_name}.weight": t(f"{conv}.weight"),

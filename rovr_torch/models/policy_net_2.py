@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from rovr_torch.models.layers import (
-    BatchStatNorm, CanvasConv3x3, MLP, max_pool, standardize,
+    BatchStatNorm, CanvasConv3x3, MLP, max_pool, reference_tensor, standardize,
 )
 from rovr_torch.models.policy_net_1 import gumbel_log_softmax
 
@@ -137,3 +137,30 @@ class PolicyNet2(nn.Module):
             raise ValueError("value() is for the critic head")
         stacked = standardize(self._stacked(canvas, target_feat), dim=0, eps=0.001)
         return self.final_fc(stacked)[:, 0]
+
+
+def convert_torch_state_dict(state_dict) -> dict:
+    """A reference PolicyNetwork2UNet checkpoint (policy_net_2.py:41-69) ->
+    this module's state dict: video_conv's convs (Sequential indices 0, 4,
+    8, 12) -> convs.0-3, its BatchNorms (1, 5, 9, 13) -> norms.0-3 (running
+    statistics dropped: the norms use the batch's), final_fc.0-4 as they are.
+
+    One layout differs: torch flattens the conv trunk (B, 512, 1, 2)
+    channel-major, this module NHWC (B, 1, 2, 512), so the first 1024
+    input columns of final_fc.0 are permuted (the target feature's columns
+    1024.. map through unchanged)."""
+    out = {}
+    for j, seq in enumerate((0, 4, 8, 12)):
+        for leaf in ("weight", "bias"):
+            out[f"convs.{j}.{leaf}"] = reference_tensor(state_dict, f"video_conv.{seq}.{leaf}")
+            out[f"norms.{j}.{leaf}"] = reference_tensor(state_dict,
+                                                        f"video_conv.{seq + 1}.{leaf}")
+    for j in range(5):
+        for leaf in ("weight", "bias"):
+            out[f"final_fc.{j}.{leaf}"] = reference_tensor(state_dict, f"final_fc.{j}.{leaf}")
+    # NHWC column w * 512 + c reads torch's column c * 2 + w
+    c, w = torch.meshgrid(torch.arange(512), torch.arange(2), indexing="xy")
+    perm = (c * 2 + w).reshape(-1)
+    fc0 = out["final_fc.0.weight"]
+    out["final_fc.0.weight"] = torch.cat([fc0[:, :1024][:, perm], fc0[:, 1024:]], dim=1)
+    return out

@@ -36,7 +36,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from rovr_torch.models.layers import Conv2d
+from rovr_torch.models.layers import Conv2d, reference_tensor
 from rovr_torch.models.video_processor import resize_bilinear
 
 NUM_LEVELS = 4
@@ -312,3 +312,52 @@ def total_flow_magnitude(flows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     """(B, P, H, W, 2) -> (total (B,), per-pair (B, P)) flow magnitudes."""
     per_pair = torch.sqrt((flows.float() ** 2).sum((-3, -2, -1)))
     return per_pair.sum(-1), per_pair
+
+
+def convert_raft_state_dict(sd) -> dict:
+    """A torchvision raft_small state dict -> this module's: the encoders'
+    `convnormrelu` (layer{i}.{b}.convnormrelu{j}, downsample, conv) ->
+    conv1/norm1, layer{i}_{b}.conv{j}/norm{j}, conv_down/norm_down, conv2
+    (the context encoder has no norms); the update block's motion encoder,
+    ConvGRU and flow head -> update.motion, update.gru, update.flow_head.
+    Convs are OIHW on both sides; a bias is taken where the reference has
+    one."""
+    out = {}
+
+    def conv(dst, src):
+        out[f"{dst}.weight"] = reference_tensor(sd, f"{src}.weight")
+        if f"{src}.bias" in sd:
+            out[f"{dst}.bias"] = reference_tensor(sd, f"{src}.bias")
+
+    def norm(dst, src):
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.{leaf}"] = reference_tensor(sd, f"{src}.{leaf}")
+
+    for name, prefix, use_norm in (("fnet", "feature_encoder", True),
+                                   ("cnet", "context_encoder", False)):
+        conv(f"{name}.conv1", f"{prefix}.convnormrelu.0")
+        if use_norm:
+            norm(f"{name}.norm1", f"{prefix}.convnormrelu.1")
+        for i in range(1, 4):
+            for blk in range(2):
+                src, dst = f"{prefix}.layer{i}.{blk}", f"{name}.layer{i}_{blk}"
+                for j in range(1, 4):
+                    conv(f"{dst}.conv{j}", f"{src}.convnormrelu{j}.0")
+                    if use_norm:
+                        norm(f"{dst}.norm{j}", f"{src}.convnormrelu{j}.1")
+                if f"{src}.downsample.0.weight" in sd:
+                    conv(f"{dst}.conv_down", f"{src}.downsample.0")
+                    if use_norm:
+                        norm(f"{dst}.norm_down", f"{src}.downsample.1")
+        conv(f"{name}.conv2", f"{prefix}.conv")
+    for dst, src in (("motion.convc1", "motion_encoder.convcorr1.0"),
+                     ("motion.convf1", "motion_encoder.convflow1.0"),
+                     ("motion.convf2", "motion_encoder.convflow2.0"),
+                     ("motion.conv", "motion_encoder.conv.0"),
+                     ("gru.convz", "recurrent_block.convgru.convz"),
+                     ("gru.convr", "recurrent_block.convgru.convr"),
+                     ("gru.convq", "recurrent_block.convgru.convq"),
+                     ("flow_head.conv1", "flow_head.conv1"),
+                     ("flow_head.conv2", "flow_head.conv2")):
+        conv(f"update.{dst}", f"update_block.{src}")
+    return out

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rovr_torch.models.layers import Conv2d, max_pool
+from rovr_torch.models.layers import Conv2d, max_pool, reference_tensor
 
 STAGE_SIZES = (3, 4, 6, 3)  # resnet50
 
@@ -143,3 +143,30 @@ class TinyBackbone(nn.Module):
         for i in range(3):
             x = torch.relu(getattr(self, f"conv{i + 1}")(x))
         return _pool_spatial(x.float(), self.spatial_pool)
+
+
+def convert_torch_state_dict(state_dict) -> dict:
+    """A torchvision resnet50 state dict -> this module's: the same convs
+    (OIHW on both sides), `layer{s}.{b}` -> `layer{s}_{b}`, `downsample.0/1`
+    -> `conv_down`/`bn_down`, each BatchNorm's weight, bias and running
+    statistics into its FrozenBatchNorm; the classifier (`fc`) is dropped."""
+    out = {}
+
+    def bn(dst, src):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = reference_tensor(state_dict, f"{src}.{leaf}")
+
+    out["conv1.weight"] = reference_tensor(state_dict, "conv1.weight")
+    bn("bn1", "bn1")
+    for stage, num_blocks in enumerate(STAGE_SIZES):
+        for block in range(num_blocks):
+            src, dst = f"layer{stage + 1}.{block}", f"layer{stage + 1}_{block}"
+            for j in (1, 2, 3):
+                out[f"{dst}.conv{j}.weight"] = reference_tensor(state_dict,
+                                                                f"{src}.conv{j}.weight")
+                bn(f"{dst}.bn{j}", f"{src}.bn{j}")
+            if f"{src}.downsample.0.weight" in state_dict:
+                out[f"{dst}.conv_down.weight"] = reference_tensor(
+                    state_dict, f"{src}.downsample.0.weight")
+                bn(f"{dst}.bn_down", f"{src}.downsample.1")
+    return out

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rovr_torch.models.layers import Conv2d, max_pool
+from rovr_torch.models.layers import Conv2d, max_pool, reference_tensor
 
 # lpips.ScalingLayer constants
 _SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
@@ -98,3 +98,22 @@ class LPIPS(nn.Module):
         b = x.shape[0]
         both = self.taps(torch.cat([x, y], dim=0), normalize=normalize)
         return self.distance_from_taps([t[:b] for t in both], [t[b:] for t in both])
+
+
+# torchvision vgg16.features' conv indices, stage by stage
+_VGG16_CONVS = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28))
+
+
+def convert_lpips_weights(vgg_state, lin_state) -> dict:
+    """torchvision vgg16.features (`features.{i}.weight`, OIHW) and lpips'
+    linear heads (`lin{i}.model.1.weight`, (1, C, 1, 1)) -> this LPIPS's
+    state dict: `vgg.conv{s}_{c}` and the flattened `lin{i}`."""
+    out = {}
+    for s, idxs in enumerate(_VGG16_CONVS):
+        for c, i in enumerate(idxs):
+            for leaf in ("weight", "bias"):
+                out[f"vgg.conv{s + 1}_{c + 1}.{leaf}"] = reference_tensor(
+                    vgg_state, f"features.{i}.{leaf}")
+    for i in range(len(_VGG16_CONVS)):
+        out[f"lin{i}"] = reference_tensor(lin_state, f"lin{i}.model.1.weight").reshape(-1)
+    return out

@@ -786,6 +786,21 @@ class HostSyntheticSource:
                                          self.cfg.rl.vid_length, h, w)
 
 
+class ClipPairs:
+    """A dataset's items as the (corrupted, original) clips `run` trains on,
+    cut to `s` frames on the host, so the prefetcher stages nothing else."""
+
+    def __init__(self, dataset, s: int):
+        self.dataset, self.s = dataset, s
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, i: int):
+        item = self.dataset[i]
+        return tuple(np.asarray(item[f])[:self.s] for f in (0, 1))
+
+
 def dataset_batch(dataset, start: int, b: int, s: int, fields: int = 2):
     """Items start .. start+b-1 (wrapping) of an indexable dataset, the
     first `fields` of each cut to s frames and stacked."""
@@ -834,12 +849,16 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
     One torch.Generator seeded from cfg.run.seed draws every step's noise.
 
     Data: `dataset`, indexable items whose [0], [1] are (>= S, H, W, 3)
-    corrupted and original clips (no masks, as in the JAX `run`); else
-    `source`, whose `next(i)` gives batch i as (corrupted, original, masks);
-    else `DeviceSyntheticSource` (20-frame clips made on the device, textured
-    by `data_texture` and `data_texture_vel`), whose masks add
-    `Episode/exposure`. Runs on CUDA
-    unless `device="cpu"`."""
+    corrupted and original clips (no masks, as in the JAX `run`), read by a
+    `DevicePrefetcher` (cfg.data.num_workers threads, max(2,
+    cfg.data.prefetch_depth * B) items, those two clips cut to S frames,
+    staged on the device ahead of the step; the seconds the step waited on
+    it are `Data/prefetch_wait_s`);
+    else `source`, whose `next(i)` gives batch i as (corrupted, original,
+    masks); else `DeviceSyntheticSource` (20-frame clips made on the device,
+    textured by `data_texture` and `data_texture_vel`), whose masks add
+    `Episode/exposure`. Runs on CUDA unless `device="cpu"`."""
+    from rovr_torch.data.dataset import DevicePrefetcher
     from rovr_torch.utils.checkpoint import CheckpointManager, run_dir
     from rovr_torch.utils.logging import MetricsWriter
 
@@ -860,18 +879,35 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
         if restored is not None:
             state = restored
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
+    prefetcher = None
 
     def batches():
-        for i in range(iterations):
-            if dataset is not None:
-                yield (*dataset_batch(dataset, i * b, b, s), None)
-            else:
-                yield source.next(i)
+        """(corrupted, original, masks, seconds waited on the prefetcher)."""
+        if dataset is None:
+            for i in range(iterations):
+                yield (*source.next(i), None)
+            return
+        items = iter(prefetcher)
+        for _ in range(iterations):
+            waited = prefetcher.wait_s
+            batch = [next(items) for _ in range(b)]
+            video, org = (torch.stack([x[f] for x in batch]) for f in (0, 1))
+            if video.shape[1] != s:
+                raise ValueError(f"dataset clips have {video.shape[1]} frames; "
+                                 f"cfg.rl.vid_length={s} requires at least that many")
+            yield video, org, None, prefetcher.wait_s - waited
 
     try:
-        for i, (video, org, masks) in enumerate(batches()):
+        if dataset is not None:
+            prefetcher = DevicePrefetcher(
+                ClipPairs(dataset, s), indices=[i % len(dataset) for i in range(iterations * b)],
+                num_workers=cfg.data.num_workers,
+                depth=max(2, cfg.data.prefetch_depth * b), device=dev)
+        for i, (video, org, masks, waited) in enumerate(batches()):
             state, metrics, recon = train_step(state, mods, cfg, video, org,
                                                generator=gen, masks=masks)
+            if waited is not None:
+                metrics["Data/prefetch_wait_s"] = waited
             if i % cfg.run.log_every == 0:
                 writer.scalars({k: float(v) for k, v in metrics.items()}, i)
                 v0, o0 = (np.asarray(torch.as_tensor(x[0, 0]).cpu()) for x in (video, org))
@@ -886,6 +922,8 @@ def run(cfg: Optional[Config] = None, dataset=None, iterations: Optional[int] = 
             ckpt.save(i, state)
         ckpt.wait()
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         ckpt.close()
         writer.close()
     return state

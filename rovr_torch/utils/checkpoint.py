@@ -24,7 +24,7 @@ from typing import Any, Optional
 
 import torch
 
-_FILE = "state.pt"
+CHECKPOINT_FILE = "state.pt"
 
 
 def run_dir(root: str, experiment: str) -> str:
@@ -106,7 +106,7 @@ class CheckpointManager:
             tmp = os.path.join(self.directory, f".{step}.tmp")
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
-            torch.save(plain, os.path.join(tmp, _FILE))
+            torch.save(plain, os.path.join(tmp, CHECKPOINT_FILE))
             final = os.path.join(self.directory, str(step))
             shutil.rmtree(final, ignore_errors=True)
             os.rename(tmp, final)
@@ -141,7 +141,7 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        plain = torch.load(os.path.join(self.directory, str(step), _FILE),
+        plain = torch.load(os.path.join(self.directory, str(step), CHECKPOINT_FILE),
                            map_location="cpu", weights_only=True)
         return plain if template is None else _like(template, plain)
 

@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights into the port: from the JAX package, and from the
+reference's torch checkpoints.
 
 `params_from_jax(jax_state)` maps a JAX `ROVRState` (flax param trees; any
 nested mapping of arrays, numpy or JAX) to the port's `ROVRState`, module
@@ -36,6 +37,7 @@ stacked per iteration (flax's nn.scan broadcasts them).
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
@@ -151,3 +153,148 @@ def imitation_state_from_jax(jax_state: Any, train_vp: bool = True, device=None)
     trained = {f"pn2.{k}": v for k, v in pn2.items()}
     trained.update({f"vp.{k}": v for k, v in vp.items() if _trained_vp(k, train_vp)})
     return ImitationState(int(np.asarray(jax_state.step)), pn2, vp, adam_init(trained))
+
+
+KINDS = (
+    "local_net",    # UNet pretrain checkpoint -> local_net_params
+    "policy2",      # imitation checkpoint -> actor2_params
+    "policy1",      # pi1 checkpoint -> actor1_params
+    "rovr",         # full RL state (test.py:88-93) -> several modules
+    "resnet50",     # torchvision resnet50 state dict -> the VideoProcessor's backbone
+    "vgg_lpips",    # pip lpips.LPIPS(net='vgg') state dict -> lpips_params
+    "raft",         # torchvision raft_small state dict -> raft_params
+)
+
+
+def _load_state_dict(path: str) -> Dict[str, Any]:
+    """torch.load a checkpoint (tensors, dicts, lists and numbers only) and
+    unwrap the reference's {'model_state_dict': ...} envelope when present."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+        ckpt = ckpt["model_state_dict"]
+    return dict(ckpt)
+
+
+def _split_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    p = prefix + "."
+    return {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+
+
+def _lpips_package_to_converter_inputs(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    """pip lpips.LPIPS(net='vgg') state dict -> (vgg_state, lin_state). lpips
+    registers each torchvision features module under its global index inside
+    per-stage slices, so 'net.slice2.5.weight' is features.5."""
+    vgg_state, lin_state = {}, {}
+    for k, v in sd.items():
+        if k.startswith("net.slice"):
+            vgg_state["features." + k.split(".", 2)[2]] = v
+        elif k.startswith("lin"):
+            lin_state[k] = v
+    return vgg_state, lin_state
+
+
+def convert_reference_checkpoint(kind: str, path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Convert one reference checkpoint of `kind` (KINDS). Returns
+    (init_params, report): init_params maps `rl.init_state` keyword names
+    (local_net_params, actor2_params, ..., vp_backbone_params, raft_params,
+    and lstm_cell_params, which init_state does not take) to port-layout
+    state dicts on the CPU; report lists what was converted and what was
+    skipped, with the converter's error (a missing key, a shape)."""
+    from rovr_torch.models import action_lstm, local_net, policy_net_1, policy_net_2
+    from rovr_torch.models import raft, resnet, vgg_lpips
+
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+    sd = _load_state_dict(path)
+    out: Dict[str, Any] = {}
+    report: Dict[str, Any] = {"kind": kind, "converted": [], "skipped": []}
+
+    def attempt(name: str, fn) -> None:
+        try:
+            out[name] = fn()
+            report["converted"].append(name)
+        except (KeyError, IndexError, ValueError, RuntimeError) as e:   # reported, not silent
+            report["skipped"].append(f"{name}: {type(e).__name__}: {e}")
+
+    def lpips(state):
+        return vgg_lpips.convert_lpips_weights(*_lpips_package_to_converter_inputs(state))
+
+    if kind == "local_net":
+        attempt("local_net_params", lambda: local_net.convert_torch_state_dict(sd))
+    elif kind == "policy2":
+        attempt("actor2_params", lambda: policy_net_2.convert_torch_state_dict(sd))
+    elif kind == "policy1":
+        attempt("actor1_params", lambda: policy_net_1.convert_torch_state_dict(sd))
+    elif kind == "resnet50":
+        attempt("vp_backbone_params", lambda: resnet.convert_torch_state_dict(sd))
+    elif kind == "raft":
+        attempt("raft_params", lambda: raft.convert_raft_state_dict(sd))
+    elif kind == "vgg_lpips":
+        attempt("lpips_params", lambda: lpips(sd))
+    elif kind == "rovr":
+        # the full RL state: rover.state_dict() (rovr.py:44-58)
+        for name, prefix, fn in (
+            ("local_net_params", "local_net", local_net.convert_torch_state_dict),
+            ("actor2_params", "actor2", policy_net_2.convert_torch_state_dict),
+            ("critic2_params", "critic2", policy_net_2.convert_torch_state_dict),
+        ):
+            sub = _split_prefix(sd, prefix)
+            if sub:
+                attempt(name, lambda fn=fn, sub=sub: fn(sub))
+            else:
+                report["skipped"].append(f"{name}: no '{prefix}.' keys")
+        enc = _split_prefix(sd, "video_encoder")
+        if enc:
+            # ResnetFeatureExtractor = frozen resnet50 + Linear(2048->768)
+            # (resnet_extractor.py:8-16): only the backbone maps onto the
+            # VideoProcessor, whose projection heads differ by design
+            backbone = _split_prefix(enc, "resnet") or enc
+            attempt("vp_backbone_params", lambda: resnet.convert_torch_state_dict(backbone))
+        hist = _split_prefix(sd, "history_encoder")
+        if hist:
+            attempt("lstm_cell_params", lambda: action_lstm.convert_torch_lstm_cell(hist))
+        lp = _split_prefix(sd, "lpips")
+        if lp:
+            attempt("lpips_params", lambda: lpips(lp))
+    return out, report
+
+
+def merge_vp_backbone(vp_params: Dict[str, torch.Tensor],
+                      backbone_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A VideoProcessor state dict with its `backbone.` entries replaced by
+    converted ResNet-50 weights (its projection heads stay: they have no
+    reference twin)."""
+    merged = {k: v for k, v in vp_params.items() if not k.startswith("backbone.")}
+    merged.update({f"backbone.{k}": v for k, v in backbone_params.items()})
+    return merged
+
+
+def save_converted(out_dir: str, init_params: Dict[str, Any]) -> str:
+    """Write converted state dicts as step 0 of a CheckpointManager
+    directory (`torch.save`); returns its absolute path."""
+    from rovr_torch.utils.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(out_dir, max_to_keep=1)
+    mgr.save(0, init_params, force=True)
+    mgr.close()
+    return os.path.abspath(out_dir)
+
+
+def load_converted(out_dir: str) -> Optional[Dict[str, Any]]:
+    """A save_converted directory back as `init_state` keyword arguments
+    (CPU tensors), or None when it holds no step. A directory the JAX
+    package's convert wrote (Orbax) raises: it cannot be read without JAX."""
+    from rovr_torch.utils.checkpoint import CHECKPOINT_FILE, CheckpointManager
+
+    mgr = CheckpointManager(out_dir, max_to_keep=1)
+    step = mgr.latest_step()
+    if step is not None and not os.path.exists(
+            os.path.join(mgr.directory, str(step), CHECKPOINT_FILE)):
+        raise ValueError(
+            f"{out_dir}: step {step} holds no {CHECKPOINT_FILE}; an Orbax checkpoint "
+            "written by `python -m rovr_tpu convert` cannot be read without JAX. "
+            "Convert the reference checkpoint with `python -m rovr_torch convert`.")
+    try:
+        return mgr.restore()
+    finally:
+        mgr.close()

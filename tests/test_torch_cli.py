@@ -92,22 +92,20 @@ def test_unported_flags_and_commands_refuse(tmp_path, capsys, monkeypatch):
                         lambda cfg, **kw: seen.update(kw) or {})
     assert tcli.main(["pipeline", "--policy1_iterations", "3", "--device", "cpu"]) == 0
     assert seen["policy1_iterations"] == 3 and seen["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main(["rl", "--warm_start", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main(["eval", "--warm_start", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["rl", "--root_folder", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         tcli.main(["reconstruct", "--data_parallel", "2"])
-    for cmd in ("pretrain", "imitate", "pipeline"):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    # pretrain and pipeline read no frame folders (nor do the JAX package's)
+    for cmd in ("pretrain", "pipeline"):
+        with pytest.raises(ValueError, match="reads no frame folders"):
             tcli.main([cmd, "--root_folder", str(tmp_path)])
-    assert tcli.main(["convert"]) == 2
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["convert", "--help"])
+    assert e.value.code == 0
+    assert "--kind" in capsys.readouterr().out
     assert tcli.main(["nonsense"]) == 2
     assert tcli.main(["--help"]) == 0
     out = capsys.readouterr().out
-    assert "not ported yet: convert" in out
+    assert "convert" in out and "not ported yet" not in out
 
 
 def test_python_dash_m_help():
@@ -115,8 +113,8 @@ def test_python_dash_m_help():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
-    assert "usage: python -m rovr_torch {rl,pretrain,imitate,eval,pipeline,reconstruct}" \
-        in out.stdout
+    assert "usage: python -m rovr_torch {rl,pretrain,imitate,eval,pipeline,reconstruct," \
+        "convert}" in out.stdout
 
 
 def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):

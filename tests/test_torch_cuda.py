@@ -413,3 +413,48 @@ def test_policy1_act_on_the_card(cuda):
     assert ((action >= 0) & (action < 64)).all()
     want = torch.log_softmax(standardize(logits, 1, eps=0.1), 1).gather(1, action[:, None])
     assert (logprob - want[:, 0]).abs().max().item() <= 1e-4
+
+
+class _Items:
+    """Item i: a float32 clip and a uint8 clip made from seed i, after a
+    sleep that lets the queues fill while the consumer is busy."""
+
+    def __init__(self, n, shape=(25, 64, 64, 3)):
+        self.n, self.shape = n, shape
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(i)
+        return (rng.uniform(size=self.shape).astype(np.float32),
+                rng.integers(0, 256, self.shape, dtype=np.uint8))
+
+
+@pytest.mark.cuda
+def test_prefetcher_staging_is_bitwise_and_stream_safe(cuda, tmp_path):
+    """Items staged by the pinned side-stream copy equal their host arrays
+    bit for bit while the consumer's stream is busy with other kernels, and
+    the frame decoder builds (g++) on the card's machine."""
+    from rovr_torch.data import dataset, native_loader
+    from rovr_torch.utils.png import png_bytes
+
+    ds = _Items(24)
+    p = dataset.DevicePrefetcher(ds, num_workers=4, depth=4, device="cuda")
+    busy = torch.randn(2048, 2048, device="cuda")
+    try:
+        for i, (clip, u8) in enumerate(p):
+            for _ in range(4):     # keep the consumer's stream behind the copies
+                busy = torch.tanh(busy @ busy)
+            assert clip.is_cuda and u8.dtype == torch.uint8
+            want_f, want_u = ds[i]
+            assert torch.equal(clip.cpu(), torch.from_numpy(want_f))
+            assert torch.equal(u8.cpu(), torch.from_numpy(want_u))
+            del clip, u8      # freed on the consumer's stream (record_stream)
+    finally:
+        p.close()
+    assert i == len(ds) - 1 and torch.isfinite(busy).all()
+    img = np.random.default_rng(0).integers(0, 256, (32, 48, 3), dtype=np.uint8)
+    path = tmp_path / "frame.png"
+    path.write_bytes(png_bytes(img))
+    np.testing.assert_array_equal(native_loader.decode_png(str(path)), img)
