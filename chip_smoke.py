@@ -152,7 +152,26 @@ before a path is driven and read just after. Phases:
      `python -m rovr_torch convert --kind <k>` of each (all at once), `rl
      --warm_start` (its first state equal to the converted tensors, bit
      for bit, on the card) and `eval --warm_start` with lpips and raft
-     (Eval/metric_weights_random 0).
+     (Eval/metric_weights_random 0);
+ 25. a DecoderBlock (hidden 256, 4 heads) on (8, 256, 256) queries over an
+     (8, 100, 256) encoder output in bf16, forward and backward against the
+     plain attention path (2 K2, 2 K3, 2 K4: cross attention with Lq != Lk),
+     and K2-K4 at the cross shape against their twins (ATTN_TOL);
+     MoEFeedForward (4 experts, capacity 1.25) at N = 2,048 tokens, index
+     dispatch against the one-hot einsum twin within bf16 rounding, with
+     dropped tokens too; then at PPO's N = 131,072 tokens, forward +
+     backward, under 2 GB above its inputs, timed;
+ 26. config-5 train steps with 4 experts in both encoder blocks: exactly
+     the dense step's 192 K1, 150 K2, 20 K3, 20 K4, finite metrics, the
+     experts' w1 moved; sec/step and peak memory beside phase 10's;
+ 27. PolicyNet2(canvas_impl="s2d") against "plain" at Config() on the same
+     weights (equal greedy actions at batch 8, values at 160 canvases within
+     POLICY_TOL), both trunks timed;
+ 28. data parallel at world size 1 over NCCL (TCP store, in process):
+     `make_sharded_train_step` against `train_step` at config 5 on the same
+     state and noise, the all-reduces counted and the same K1-K4 launches;
+     `reconstruct_clips(mesh=)` against `reconstruct_clips()` (1 LSB, equal
+     actions); `DevicePrefetcher(sharding=mesh)` bitwise.
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
@@ -2574,6 +2593,316 @@ def phase_convert(torch, cli, convert, rl, evaluate, here, out_dir):
     return res
 
 
+
+# ------------------------------------------------------------- phases 25-28
+
+MOE_EXPERTS = 4          # config 5 with experts: attn_moe_experts, capacity 1.25
+MOE_PEAK_LIMIT = 2e9     # bytes above its inputs a PPO-size MoE call may allocate
+MOE_TRAIN_STEPS = 2      # timed config-5 MoE steps after one warm-up
+S2D_ITERS = 10           # CUDA-event iterations per s2d/plain timing
+
+
+def _rel_max(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def phase_blocks_moe(torch, conv, attention, flax_init_state):
+    """The attention module's rest and the MoE at config-5 width: a
+    DecoderBlock (hidden 256, 4 heads) on (8, 256, 256) queries over an
+    (8, 100, 256) encoder output in bf16, forward and backward through K2-K4
+    (Lq != Lk in its cross attention) against the plain attention path,
+    and each kernel at the cross shape against its plain twin (ATTN_TOL);
+    MoEFeedForward (4 experts, capacity 1.25) at a rollout step's N = 2,048
+    tokens, index dispatch against the one-hot einsum twin (bf16 rounding,
+    2^-8 of the largest value), with a dropping capacity too; then at PPO's
+    N = 131,072 tokens, forward + backward, its peak allocation above its
+    inputs under MOE_PEAK_LIMIT (the dense (N, E, C) dispatch would be
+    85.9 GB in f32) and its time."""
+    from rovr_torch.models.attention import DecoderBlock
+    from rovr_torch.models.moe import MoEFeedForward, capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    res = {}
+    blocks = {impl: DecoderBlock(256, 4, attn_impl=impl).cuda() for impl in ("auto", "jnp")}
+    params = flax_init_state(blocks["auto"], torch.Generator().manual_seed(25))
+    x = torch.randn(8, 256, 256, device="cuda", generator=gen).bfloat16()
+    enc = torch.randn(8, 100, 256, device="cuda", generator=gen).bfloat16()
+    outs = {}
+    for impl, blk in blocks.items():
+        blk.load_state_dict(params)
+        xi, ei = x.clone().requires_grad_(), enc.clone().requires_grad_()
+        _zero_counts(conv, attention)
+        y = blk(xi, ei)
+        (y.float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        outs[impl] = (y.detach(), xi.grad, ei.grad, _counts(conv, attention))
+    want = {"K1": 0, "K2": 2, "K3": 2, "K4": 2}
+    if outs["auto"][3] != want or outs["jnp"][3] != {k: 0 for k in want}:
+        raise AssertionError(f"decoder block launches {outs['auto'][3]} / plain "
+                             f"{outs['jnp'][3]}, expected {want} / none")
+    errs = {n: _rel_max(outs["auto"][i], outs["jnp"][i])
+            for i, n in enumerate(("out", "grad_x", "grad_enc"))}
+    # each kernel at the cross-attention shape (8, 4, 256 x 100, 64)
+    q = torch.randn(8, 4, 256, 64, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(8, 4, 100, 64, device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    do = torch.randn_like(q)
+    out, lse = attention.flash_attention_fwd(q, k, v)
+    out_p, lse_p = attention.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = attention.flash_attention_dq(q, k, v, do, lse, delta)
+    dk, dv = attention.flash_attention_dkv(q, k, v, do, lse, delta)
+    dq_p = attention.flash_attention_dq_plain(q, k, v, do, lse, delta)
+    dk_p, dv_p = attention.flash_attention_dkv_plain(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    errs.update(cross_out=_rel_max(out, out_p), cross_dq=_rel_max(dq, dq_p),
+                cross_dk=_rel_max(dk, dk_p), cross_dv=_rel_max(dv, dv_p))
+    errs["cross_lse_abs"] = (lse.float() - lse_p.float()).abs().max().item()
+    log(f"decoder block (8,256)x(8,100), hidden 256: launches {outs['auto'][3]}; "
+        f"kernel vs plain (x max|plain|, limit {ATTN_TOL}; lse abs, limit {LSE_TOL}) {errs}")
+    if max(v for n, v in errs.items() if n != "cross_lse_abs") > ATTN_TOL \
+            or errs["cross_lse_abs"] > LSE_TOL:
+        raise AssertionError(f"decoder block / cross attention disagrees with plain: {errs}")
+    res["decoder"] = dict(launches=outs["auto"][3], rel_err=errs)
+
+    moe = {}
+    for factor in (1.25, 0.3):
+        m = MoEFeedForward(256, MOE_EXPERTS, factor).cuda()
+        m.load_state_dict(flax_init_state(m, torch.Generator().manual_seed(26)))
+        twin = MoEFeedForward(256, MOE_EXPERTS, factor, dispatch="onehot").cuda()
+        twin.load_state_dict(m.state_dict())
+        xr = torch.randn(8, 256, 256, device="cuda", generator=gen).bfloat16()
+        with torch.no_grad():
+            yi, yo = m(xr), twin(xr)
+        torch.cuda.synchronize()
+        err = _rel_max(yi, yo)
+        dropped = int((yo.float() == 0).all(-1).sum())
+        same_drops = torch.equal((yi.float() == 0).all(-1), (yo.float() == 0).all(-1))
+        moe[f"n2048_cap{factor}"] = dict(rel_err=err, dropped=dropped,
+                                        cap=capacity(2048, MOE_EXPERTS, factor))
+        log(f"MoE N=2048 capacity {factor}: index vs one-hot max|d| {err:.3g} x max "
+            f"(limit 2^-8), {dropped} tokens dropped")
+        if err > 2 ** -8 or not same_drops or (dropped > 0) != (factor < 1.0):
+            raise AssertionError(f"MoE index dispatch disagrees with the one-hot twin: "
+                                 f"{moe[f'n2048_cap{factor}']}")
+    m = MoEFeedForward(256, MOE_EXPERTS, 1.25).cuda()
+    m.load_state_dict(flax_init_state(m, torch.Generator().manual_seed(27)))
+    xb = torch.randn(512, 256, 256, device="cuda", generator=gen).bfloat16().requires_grad_()
+    gy = torch.randn(512, 256, 256, device="cuda", generator=gen).bfloat16()
+    torch.cuda.synchronize()
+
+    def fwd_bwd():
+        xb.grad = None
+        for p in m.parameters():
+            p.grad = None
+        m(xb).backward(gy)
+
+    fwd_bwd()                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(fwd_bwd, iters=5, warmup=1)
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: m(xb), iters=5, warmup=1)
+    cap = capacity(131072, MOE_EXPERTS, 1.25)
+    moe["n131072"] = dict(cap=cap, peak_above_inputs_gb=peak / 1e9, fwd_bwd_ms=ms,
+                          fwd_ms=t_fwd, buffer_gb=(MOE_EXPERTS * cap + 1) * 256 * 2 / 1e9,
+                          dense_dispatch_f32_gb=131072 * MOE_EXPERTS * cap * 4 / 1e9,
+                          finite=bool(torch.isfinite(xb.grad.float()).all()))
+    log(f"MoE N=131072 (PPO's tokens), cap {cap}: forward {t_fwd:.3f} ms, forward + "
+        f"backward {ms:.3f} ms, peak {peak / 1e9:.3f} GB above its inputs (limit "
+        f"{MOE_PEAK_LIMIT / 1e9:.0f} GB; the (E, C, d) buffer "
+        f"{moe['n131072']['buffer_gb']:.3f} GB, the dense dispatch would be "
+        f"{moe['n131072']['dense_dispatch_f32_gb']:.1f} GB)")
+    if peak > MOE_PEAK_LIMIT or not moe["n131072"]["finite"]:
+        raise AssertionError(f"MoE at N=131072: {moe['n131072']}")
+    res["moe"] = moe
+    return res
+
+
+def config5_moe(cfg5):
+    import dataclasses
+
+    return cfg5.replace(model=dataclasses.replace(cfg5.model, attn_moe_experts=MOE_EXPERTS,
+                                                  attn_moe_capacity=1.25))
+
+
+def phase_train5_moe(torch, conv, attention, rl, cfg5, video, org, train5):
+    """Config-5 train steps with the MoE FFN in both encoder blocks (4
+    experts, capacity 1.25): a warm-up, then MOE_TRAIN_STEPS timed steps;
+    each must launch exactly what the dense step launches (192 K1, 150 K2,
+    20 K3, 20 K4), give finite metrics and move the actor's and critic's
+    parameters, the experts' w1 among them; sec/step and peak memory beside
+    the dense step's (phase 10)."""
+    cfg = config5_moe(cfg5)
+    mods = rl.make_modules(cfg, device="cuda")
+    state = rl.init_state(cfg, mods, seed=0)
+    if "block0.moe_ff.w1" not in state.actor2_params:
+        raise AssertionError("config 5 with experts built no moe_ff")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(conv, attention)   # counts from here are this path's
+    times = []
+    for i in range(1 + MOE_TRAIN_STEPS):
+        before = _counts(conv, attention)
+        t0 = time.time()
+        new, metrics, recon = rl.train_step(state, mods, cfg, video, org, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        after = _counts(conv, attention)
+        step_counts = {k: after[k] - before[k] for k in after}
+        if step_counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"MoE train step {i} launched {step_counts}, expected "
+                                 f"{TRAIN_LAUNCHES}")
+        m = _finite_metrics(metrics)
+        moved = {f: _moved(getattr(new, f"{f}_params"), getattr(state, f"{f}_params"))
+                 for f in ("actor2", "critic2")}
+        w1 = (new.actor2_params["block0.moe_ff.w1"]
+              - state.actor2_params["block0.moe_ff.w1"]).abs().max().item()
+        if not (all(v > 0 for v in moved.values()) and w1 > 0):
+            raise AssertionError(f"MoE train step {i} did not move the params: {moved}, w1 {w1}")
+        if not torch.isfinite(recon).all():
+            raise AssertionError("MoE train step reconstruction not finite")
+        log(f"config-5 MoE train step {i}: {times[-1]:.3f} s, launches {step_counts}, "
+            f"metrics {m}, max|w1 change| {w1:.3g}")
+        state = new
+    aux = [float(getattr(mods.actor2, f"block{i}").moe_ff.moe_aux.detach()) for i in range(2)]
+    sec = sorted(times[1:])[len(times[1:]) // 2]
+    res = dict(experts=MOE_EXPERTS, capacity=1.25, launches=_counts(conv, attention),
+               launches_per_step=TRAIN_LAUNCHES, warmup_s=times[0], sec_per_step_each=times[1:],
+               sec_per_step=sec, dense_sec_per_step=train5["sec_per_step"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               dense_peak_mem_gb=train5["peak_mem_gb"], moe_aux=aux, metrics=m)
+    log(f"config-5 MoE train: {sec:.4f} s/step (dense {train5['sec_per_step']:.4f}), peak "
+        f"{res['peak_mem_gb']:.2f} GB (dense {train5['peak_mem_gb']:.2f}), moe_aux {aux}")
+    return res
+
+
+def phase_s2d(torch, Config, flax_init_state):
+    """PolicyNet2(canvas_impl="s2d") against "plain" at Config() on the same
+    weights: greedy `act` at serving's batch 8 (equal actions, logprobs
+    within POLICY_TOL of their scale) and the critic's `value` at PPO's
+    B*T = 160 canvases (POLICY_TOL); then both trunks timed (CUDA events):
+    `_video_conv` forward at batch 8 and forward + backward at 160."""
+    from rovr_torch.models.policy_net_2 import PolicyNet2
+
+    cfg = Config()
+    m = cfg.model
+    kw = dict(num_frames=m.pn2_num_frames, fc_dims=m.pn2_fc_dims, canvas_size=m.canvas_size,
+              feature_dim=m.feature_dim)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    res, outs = {}, {}
+    for critic in (False, True):
+        pols = {impl: PolicyNet2(**kw, canvas_impl=impl, is_critic=critic).cuda()
+                for impl in ("plain", "s2d")}
+        params = flax_init_state(pols["plain"], torch.Generator().manual_seed(27 + critic))
+        b = 160 if critic else 8
+        canvas = torch.rand(b, m.canvas_size, m.canvas_size, 1, device="cuda", generator=gen)
+        feat = torch.randn(b, m.feature_dim, device="cuda", generator=gen)
+        tgt = torch.arange(b, device="cuda") % m.pn2_num_frames
+        for impl, pol in pols.items():
+            pol.load_state_dict(params)
+            with torch.no_grad():
+                outs[(impl, critic)] = (pol.value(canvas, feat) if critic else
+                                        pol.act(canvas, feat, tgt, greedy=True))
+            pol.requires_grad_(True)
+            cv = canvas.clone().requires_grad_()
+            res[f"{impl}_{'ppo_fwd_bwd' if critic else 'serve_fwd'}_ms"] = cuda_ms(
+                (lambda p=pol, c=cv: p._video_conv(c).sum().backward()) if critic else
+                (lambda p=pol, c=canvas: p._video_conv(c)), iters=S2D_ITERS, warmup=2)
+    torch.cuda.synchronize()
+    (acs_p, lp_p), (acs_s, lp_s) = outs[("plain", False)], outs[("s2d", False)]
+    v_p, v_s = outs[("plain", True)], outs[("s2d", True)]
+    res.update(actions_equal=bool(torch.equal(acs_p, acs_s)), logprob_rel=_rel_max(lp_s, lp_p),
+               value_rel=_rel_max(v_s, v_p))
+    log(f"s2d canvas at Config(): {res}")
+    if not res["actions_equal"] or res["logprob_rel"] > POLICY_TOL \
+            or res["value_rel"] > POLICY_TOL:
+        raise AssertionError(f"PolicyNet2 s2d disagrees with plain: {res}")
+    return res
+
+
+def phase_dp1(torch, np, conv, attention, rl, infer, dataset, cfg5, video, org, masks, u8):
+    """Data parallel at world size 1 over NCCL (a TCP store on a localhost
+    port, in this process): `make_sharded_train_step` against `train_step`
+    on config 5's state with the same global noise (metrics within 1e-3
+    relative + 1e-4; the updated actor and critic within 2*lr*n_updates
+    everywhere and 1e-5 on 99% of entries), the all-reduces counted (more
+    than 0) and the step's K1-K4 launches; `reconstruct_clips(mesh=)` against
+    `reconstruct_clips()` (uint8 within 1 LSB, equal actions);
+    `DevicePrefetcher(sharding=mesh)` staging bitwise equal to the host items."""
+    import torch.distributed as dist
+
+    from rovr_torch.parallel import collectives, launch
+    from rovr_torch.parallel.mesh import make_mesh
+
+    mods = rl.make_modules(cfg5, device="cuda")
+    state = rl.init_state(cfg5, mods, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    b, s, t = video.shape[0], video.shape[1], cfg5.rl.time_steps
+    noise = (rl.gumbel_noise((t, b, s), gen, "cuda"),
+             rl.gumbel_noise((cfg5.rl.n_updates_per_ppo, b * t, s), gen, "cuda"))
+    t0 = time.time()
+    want = rl.train_step(state, mods, cfg5, video, org, gumbel=noise, masks=masks)
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    serve_want = next(infer.reconstruct_clips(cfg5, state, mods, [u8]))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(cfg5.mesh)
+        calls = dict(collectives.CALLS)
+        step = rl.make_sharded_train_step(mesh, mods, cfg5)
+        _zero_counts(conv, attention)   # counts from here are the sharded step's
+        t0 = time.time()
+        got = step(state, video, org, gumbel=noise, masks=masks)
+        torch.cuda.synchronize()
+        sharded_s = [time.time() - t0]
+        counts = _counts(conv, attention)
+        step_calls = {k: collectives.CALLS[k] - calls.get(k, 0) for k in collectives.CALLS}
+        t0 = time.time()   # a second step: the first set up NCCL's communicator
+        step(state, video, org, gumbel=noise, masks=masks)
+        torch.cuda.synchronize()
+        sharded_s.append(time.time() - t0)
+        serve_got = next(infer.reconstruct_clips(cfg5, state, mods, [u8], mesh=mesh))
+        items = [(np.random.default_rng(i).uniform(size=(8, 64, 64, 3)).astype(np.float32),)
+                 for i in range(6)]
+        pre = dataset.DevicePrefetcher(items, num_workers=2, sharding=mesh)
+        staged_equal = all(torch.equal(x[0].cpu(), torch.from_numpy(items[i][0]))
+                           for i, x in enumerate(pre))
+        pre.close()
+    finally:
+        dist.destroy_process_group()
+    if counts != TRAIN_LAUNCHES or step_calls.get("all_reduce", 0) == 0:
+        raise AssertionError(f"sharded step launches {counts}, collectives {step_calls}")
+    merr = {k: abs(float(got[1][k]) - float(v)) / (abs(float(v)) + 1e-1)
+            for k, v in want[1].items()}
+    bound = 2 * cfg5.rl.actor_lr * cfg5.rl.n_updates_per_ppo
+    pdiff = {}
+    for field in ("actor2_params", "critic2_params"):
+        a, ref = getattr(got[0], field), getattr(want[0], field)
+        d = torch.cat([(a[k] - ref[k]).abs().flatten() for k in ref])
+        pdiff[field] = dict(max=d.max().item(), share_1e5=(d <= 1e-5).float().mean().item())
+    lsb = int(np.abs(serve_got[0].astype(int) - serve_want[0].astype(int)).max())
+    res = dict(launches=counts, collectives=step_calls, metrics_rel=merr, params=pdiff,
+               single_s=single_s, sharded_s=sharded_s, serve_max_lsb=lsb,
+               serve_actions_equal=bool(np.array_equal(serve_got[1], serve_want[1])),
+               staged_equal=staged_equal)
+    log(f"data parallel, world size 1 over NCCL: {res}")
+    ok = (set(got[1]) == set(want[1])
+          and all(abs(float(got[1][k]) - float(v)) <= 1e-3 * abs(float(v)) + 1e-4
+                  for k, v in want[1].items())
+          and all(p["max"] <= bound and p["share_1e5"] >= 0.99 for p in pdiff.values())
+          and lsb <= 1 and res["serve_actions_equal"] and staged_equal)
+    if not ok:
+        raise AssertionError(f"the world-size-1 mesh disagrees with one device: {res}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2703,6 +3032,16 @@ def main() -> int:
                       tree, here, out_dir)
     torch.cuda.empty_cache()
     convert_res = timed(phase_convert, torch, cli, convert, rl, evaluate, here, out_dir)
+    torch.cuda.empty_cache()
+    blocks_moe = timed(phase_blocks_moe, torch, conv, attention, flax_init_state)
+    torch.cuda.empty_cache()
+    u8_5, (video5, org5), masks5, _ = config5_clips(torch, np, synthetic, cfg5)
+    train5_moe = timed(phase_train5_moe, torch, conv, attention, rl, cfg5, video5, org5, train5)
+    torch.cuda.empty_cache()
+    s2d = timed(phase_s2d, torch, Config, flax_init_state)
+    torch.cuda.empty_cache()
+    dp1 = timed(phase_dp1, torch, np, conv, attention, rl, infer, dataset, cfg5, video5, org5,
+                masks5, u8_5)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -2787,8 +3126,11 @@ def main() -> int:
         row["launches_per_imitation_step"] = {
             name: r["launches_per_step"][kid] for name, r in imitate.items()}
     kernels[0]["backward_calls_per_pretrain_step"] = pretrain["launches_per_step"]["K1_backward"]
-    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):   # phase 20's, per step
+    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):   # phases 20, 25, 26, 28
         row["launches_per_pi1_step"] = train5_pi1["launches_per_step"][kid]
+        row["launches_per_decoder_fwd_bwd"] = blocks_moe["decoder"]["launches"][kid]
+        row["launches_per_moe_step"] = train5_moe["launches_per_step"][kid]
+        row["launches_per_dp1_step"] = dp1["launches"][kid]
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
                   serving=serving,
@@ -2798,7 +3140,8 @@ def main() -> int:
                   rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
                   source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
                   train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, frame_tree=frame_tree,
-                  folder_rl=folder_rl, convert=convert_res, phase_seconds=phase_s,
+                  folder_rl=folder_rl, convert=convert_res, blocks_moe=blocks_moe,
+                  train5_moe=train5_moe, s2d=s2d, dp1=dp1, phase_seconds=phase_s,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -17,8 +17,12 @@ explicit-teacher reader (`rl`, `imitate`, `eval`) or the random-mask one
 (`reconstruct`), as in the JAX CLI; otherwise the drivers draw synthetic
 clips made on the device. `pretrain` and `pipeline` read no folder (neither
 does the JAX package's) and refuse `--root_folder`. `--warm_start` (`rl`,
-`eval`) reads a directory `convert` wrote. `--data_parallel` > 1 raises
-NotImplementedError naming its ROADMAP.md item.
+`eval`) reads a directory `convert` wrote. `reconstruct --data_parallel N`
+(N > 1) serves each batch across N devices: where the JAX CLI is one
+process over N devices, this one starts N processes itself, one per device
+(NCCL on CUDA devices 0..N-1, or gloo with `--device cpu`), and rank 0
+writes the frames; N above the device count (the CPU's cores with
+`--device cpu`) or a batch it does not divide is an error, as in JAX.
 """
 
 from __future__ import annotations
@@ -308,9 +312,19 @@ def reconstruct_config(argv: List[str]):
     p.add_argument("--context_policy", choices=("canvas", "attention"), default="canvas")
     p.add_argument("--out", type=str, default="reconstructed")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="shard the clip batch over this many devices (not ported)")
+                   help="shard the clip batch over this many devices, one process each "
+                        "(0 = single device); batch_size must divide by it")
     _base_parser(p)
     args = p.parse_args(argv)
+    if args.data_parallel > 1:
+        from rovr_torch.parallel.launch import device_count
+
+        n = device_count("cpu" if args.device == "cpu" else "cuda")
+        if args.data_parallel > n:
+            p.error(f"--data_parallel {args.data_parallel} > {n} devices")
+        if args.batch_size % args.data_parallel:
+            p.error(f"--batch_size {args.batch_size} not divisible by "
+                    f"--data_parallel {args.data_parallel}")
     cfg = _apply_base(Config(), args)
     cfg = cfg.replace(
         rl=dataclasses.replace(
@@ -326,17 +340,30 @@ def cmd_reconstruct(argv: List[str]) -> int:
     write frames as <out>/<clip>/<frame>.png."""
     cfg, args = reconstruct_config(argv)
     if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1: data-parallel serving is not in the port yet "
-            "(ROADMAP.md Queue 1 item 10)")
+        from rovr_torch.parallel import launch
+
+        launch.spawn(_reconstruct_rank, args.data_parallel,
+                     "cpu" if args.device == "cpu" else "cuda", args=(cfg, args))
+        return 0
+    _reconstruct_rank(None, cfg, args)
+    return 0
+
+
+def _reconstruct_rank(mesh, cfg: Config, args) -> None:
+    """`reconstruct` on one device, or as one rank of a data mesh (rank 0
+    prints the summary)."""
     from rovr_torch import infer
 
     summary = infer.run(cfg, restore_from=args.restore_from,
                         dataset=_dataset(cfg, args, explicit=False),
-                        num_clips=args.num_clips, out_dir=args.out, device=args.device)
+                        num_clips=args.num_clips, out_dir=args.out,
+                        device=args.device if mesh is None else None, mesh=mesh)
+    if mesh is not None:
+        summary["data_parallel"] = mesh.size
+        if mesh.rank != 0:
+            return
     for k, v in summary.items():
-        print(f"{k}: {v}")
-    return 0
+        print(f"{k}: {v}", flush=True)
 
 
 def cmd_convert(argv: List[str]) -> int:

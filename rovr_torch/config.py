@@ -46,7 +46,7 @@ class ModelConfig:
 
     # Local inpainting UNet: enc 9->64->128->256->512.
     local_net_channels: Tuple[int, ...] = (64, 128, 256, 512)
-    # Policy 1 frame-selection UNet (not in the port yet).
+    # Policy 1 frame-selection UNet.
     pn1_channels: Tuple[int, ...] = (32, 64, 128, 256)
     pn1_num_frames: int = 25
     pn1_temperature: float = 0.5
@@ -62,7 +62,7 @@ class ModelConfig:
     canvas_tile: int = 32
     canvas_tiles_per_row: int = 5
     feature_dim: int = 1024
-    # ActionLSTM (not in the port yet)
+    # ActionLSTM
     lstm_hidden_dim: int = 1024
     # Attention context policy
     attn_hidden_dim: int = 256

@@ -27,6 +27,7 @@ import torch
 
 from rovr_torch.config import DataConfig
 from rovr_torch.data import corruption, synthetic, teacher
+from rovr_torch.parallel.mesh import Mesh, local_rows
 
 
 def list_clips(root_folder: str) -> List[str]:
@@ -169,6 +170,12 @@ class DevicePrefetcher:
     items become CPU tensors; without `to_device` they stay as the dataset
     gave them.
 
+    `sharding` (a data `parallel.mesh.Mesh`): each rank stages only its rows
+    of each array of an item (axis 0, split evenly over the ranks, as the
+    JAX prefetcher's batch sharding splits it) onto the mesh's device, which
+    replaces `device`; the ranks' shards concatenate to the item. The
+    dataset still decodes whole items.
+
     A worker's exception is raised in the consumer. `close()` stops and
     joins every thread and drains both queues. `wait_s` sums the seconds the
     consumer blocked waiting for an item. Worker threads, not processes
@@ -178,14 +185,19 @@ class DevicePrefetcher:
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  num_workers: int = 4, depth: int = 2, sharding=None,
                  to_device: bool = True, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=...): staging across devices is not in "
-                "the port yet (ROADMAP.md Queue 1 item 10)")
         from rovr_torch import device as device_mod
 
+        if sharding is not None and not isinstance(sharding, Mesh):
+            raise TypeError(f"sharding must be a parallel.mesh.Mesh, got "
+                            f"{type(sharding).__name__}")
         self.dataset = dataset
         self.indices = list(indices if indices is not None else range(len(dataset)))
+        self.sharding = sharding
+        if sharding is not None:
+            if not to_device:
+                raise ValueError("sharding stages onto the mesh's device: to_device=False "
+                                 "leaves nothing to shard")
+            device = sharding.device
         self.device = device_mod.resolve(device) if to_device else None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device is not None and self.device.type == "cuda" else None)
@@ -228,6 +240,8 @@ class DevicePrefetcher:
     def _to_device(self, item):
         """(tensors on the device, the copy's event or None)."""
         arrays = [torch.as_tensor(np.asarray(x)) for x in item]
+        if self.sharding is not None:
+            arrays = [a[local_rows(self.sharding, a.shape[0])] for a in arrays]
         if self._stream is None:
             return tuple(a.to(self.device) for a in arrays), None
         with torch.cuda.stream(self._stream):

@@ -8,9 +8,16 @@ its LPIPS reward path (`rewards=False`), which is what XLA's dead-code
 elimination does to the JAX serving graph, so the corrupted clip stands in
 for both inputs. Frames are written as out/<clip>/<frame>.png.
 
-Not ported here: the mesh (data-parallel) serving path, the tunnel-only
-chunked device fetch and the on-device synthetic source; `run` draws its
-default clips from the port's host generator.
+With a data mesh (`parallel.mesh`, one process per device) the clip batch
+is sharded over the ranks and the state replicated from rank 0: each rank
+runs the greedy rollout on its rows, with the policies' batch statistics
+taken over the global batch, and the uint8 reconstructions and actions
+are all-gathered, so every rank yields the full batch, as the JAX mesh
+path does. `run(mesh=)` writes frames on rank 0 only.
+
+Not ported here: the tunnel-only chunked device fetch and the on-device
+synthetic source; `run` draws its default clips from the port's host
+generator.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import numpy as np
 import torch
 
 from rovr_torch.config import Config
+from rovr_torch.parallel import collectives
+from rovr_torch.parallel.mesh import Mesh, local_batch_size, replicate, shard_batch
 from rovr_torch.train import rl
 
 
@@ -31,23 +40,39 @@ def reconstruct_clips(
     state: rl.ROVRState,
     mods: rl.ROVRModules,
     videos: Iterable,
+    mesh: Optional[Mesh] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield (reconstructed uint8 (B,S,H,W,3), actions (T,B,2)) per corrupted
     (B, S, H, W, 3) batch (uint8, or float in [0,1]), on the modules'
-    device."""
+    device. With a data `mesh` every rank passes the same batches (B
+    divisible by the mesh size) and gets the full batch back."""
     cfg = cfg.replace(rl=dataclasses.replace(
         cfg.rl, greedy=True, sequential_baseline=False))
     device = next(mods.local_net.parameters()).device
-    state = rl.state_to(state, device)  # once, not per batch
+    if mesh is None:
+        state = rl.state_to(state, device)  # once, not per batch
+    else:
+        if device != mesh.device:
+            raise ValueError(f"modules on {device}, the mesh's device is {mesh.device}")
+        state = replicate(mesh, state)
     for video in videos:
-        v = torch.as_tensor(video).to(device)
+        v = torch.as_tensor(video)
+        if mesh is None:
+            v = v.to(device)
+        else:
+            local_batch_size(mesh, v.shape[0])   # B must divide the mesh
+            v = shard_batch(mesh, v)
         with torch.inference_mode():
             if v.dtype == torch.uint8:
                 v = v.float() / 255.0
-            out = rl.rollout(state, mods, cfg, v, v, rewards=False)
+            out = rl.rollout(state, mods, cfg, v, v, rewards=False, mesh=mesh)
             recon_u8 = (out.reconstructed.float() * 255.0 + 0.5).clamp(0.0, 255.0)
             recon_u8 = recon_u8.to(torch.uint8)
-        yield recon_u8.cpu().numpy(), out.traj.actions.cpu().numpy()
+            actions = out.traj.actions
+            if mesh is not None:
+                recon_u8 = collectives.all_gather(recon_u8, mesh, axis=0)
+                actions = collectives.all_gather(actions, mesh, axis=1)
+        yield recon_u8.cpu().numpy(), actions.cpu().numpy()
 
 
 def write_frames(recon: np.ndarray, out_dir: str, clip_offset: int = 0) -> int:
@@ -84,11 +109,14 @@ def run(
     num_clips: int = 4,
     out_dir: str = "reconstructed",
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Serve end to end: restore a trained RL state from the checkpoints
     directory `restore_from` (random init from cfg.run.seed when it is None
     or holds no step), reconstruct `num_clips` clips in batches of
-    cfg.rl.batch_size, write their frames.
+    cfg.rl.batch_size, write their frames. With a data `mesh` each batch is
+    served across its ranks (`device` is then the mesh's) and rank 0 alone
+    writes the frames (the others report 0 written).
 
     `dataset`: indexable items whose [0] is a (>=S, H, W, 3) clip; None
     draws synthetic clips (rovr_torch.data.synthetic). Runs on CUDA unless
@@ -97,6 +125,8 @@ def run(
     from rovr_torch.utils.checkpoint import CheckpointManager
 
     cfg = cfg or Config()
+    if mesh is not None:
+        device = mesh.device
     mods = rl.make_modules(cfg, device=device)
     state = rl.init_state(cfg, mods, cfg.run.seed)
     restored = False
@@ -118,10 +148,12 @@ def run(
                 yield np.clip(f * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
     written = clips = 0
-    for recon, _ in reconstruct_clips(cfg, state, mods, batches()):
+    writes = mesh is None or mesh.rank == 0
+    for recon, _ in reconstruct_clips(cfg, state, mods, batches(), mesh=mesh):
         # fixed batch size b; trim the tail to exactly num_clips clips
         take = min(recon.shape[0], num_clips - clips)
-        written += write_frames(recon[:take], out_dir, clip_offset=clips)
+        if writes:
+            written += write_frames(recon[:take], out_dir, clip_offset=clips)
         clips += take
     return {
         "clips": clips,

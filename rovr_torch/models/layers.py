@@ -19,6 +19,7 @@ autograd of the f32 formula would save three f32 copies of the activation
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -27,24 +28,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from rovr_torch.ops import conv as k1
+from rovr_torch.parallel import collectives
 
 
 class _BatchStatNormFn(torch.autograd.Function):
     """y = (x - mean) * rsqrt(var + eps) * weight + bias over `dims` (f32
     math, the forward exactly as BatchStatNorm's formula), saving x in its
     own dtype and the f32 mean and rstd; the backward recomputes
-    xhat from them."""
+    xhat from them.
+
+    Under a data mesh the statistics are the global batch's: the forward
+    all-reduces the per-channel sums of x and x^2 and the count, the
+    backward the sums behind its two means m1 and m2 (one call each). Each
+    rank's backward then carries its shard's part of the global loss's
+    gradient times the mesh size, which the optimiser's gradient mean
+    divides out (parallel.collectives)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, dims, out_dtype):
+    def forward(ctx, x, weight, bias, eps, dims, out_dtype, mesh=None):
         x32 = x.float()
-        mean = x32.mean(dims, keepdim=True)
-        var = (x32 * x32).mean(dims, keepdim=True) - mean * mean
+        if mesh is None:
+            mean = x32.mean(dims, keepdim=True)
+            var = (x32 * x32).mean(dims, keepdim=True) - mean * mean
+        else:
+            mean, ex2 = _global_means(mesh, dims, x32, x32 * x32)
+            var = ex2 - mean * mean
         rstd = torch.rsqrt(var + eps)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         y = (x32 - mean) * rstd * weight.view(shape) + bias.view(shape)
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.dims = dims
+        ctx.mesh = mesh
         return y.to(out_dtype)
 
     @staticmethod
@@ -59,10 +73,25 @@ class _BatchStatNormFn(torch.autograd.Function):
         gx = None
         if ctx.needs_input_grad[0]:
             g.mul_(weight.view(shape))              # d/d xhat
-            m1 = g.mean(ctx.dims, keepdim=True)
-            m2 = (g * xhat).mean(ctx.dims, keepdim=True)
+            if ctx.mesh is None:
+                m1 = g.mean(ctx.dims, keepdim=True)
+                m2 = (g * xhat).mean(ctx.dims, keepdim=True)
+            else:
+                m1, m2 = _global_means(ctx.mesh, ctx.dims, g, g * xhat)
             gx = g.sub_(m1).sub_(xhat.mul_(m2)).mul_(rstd).to(x.dtype)
-        return gx, gw, gb, None, None, None
+        return gx, gw, gb, None, None, None, None
+
+
+def _global_means(mesh, dims, *ts):
+    """The means over `dims` of each of `ts` across every rank of `mesh`
+    (keepdim), from one all-reduce of their sums and the element count."""
+    sums = [t.sum(dims, keepdim=True) for t in ts]
+    count = math.prod(ts[0].shape[d] for d in dims)
+    flat = torch.cat([s.reshape(-1) for s in sums]
+                     + [sums[0].new_full((1,), float(count))])
+    flat = collectives.all_reduce_(flat, mesh)
+    parts = flat[:-1].split([s.numel() for s in sums])
+    return [p.view_as(s) / flat[-1] for p, s in zip(parts, sums)]
 
 
 class BatchStatNorm(nn.Module):
@@ -70,7 +99,9 @@ class BatchStatNorm(nn.Module):
     (axis 1): var = E[x^2] - E[x]^2, eps 1e-5, f32 math.
 
     `per_sample=True` leaves the batch axis out of the statistics, so a
-    sample's output does not depend on its batchmates."""
+    sample's output does not depend on its batchmates. Otherwise, inside
+    `parallel.collectives.global_batch(mesh)`, the statistics cover every
+    rank's batch."""
 
     init_as_constructed = True   # flax_init_state: ones and zeros
 
@@ -89,10 +120,12 @@ class BatchStatNorm(nn.Module):
                 "per_sample stats need at least one non-batch reduction axis"
             )
         dims = tuple(range(2, x.dim()))
+        mesh = None
         if not self.per_sample:
             dims = (0,) + dims
+            mesh = collectives.current_mesh()
         return _BatchStatNormFn.apply(x, self.weight, self.bias, self.eps, dims,
-                                      x.dtype if self.dtype is None else self.dtype)
+                                      x.dtype if self.dtype is None else self.dtype, mesh)
 
 
 def max_pool(
@@ -197,28 +230,80 @@ class RecurrentLinear(nn.Linear):
     draws orthogonal, as flax's `recurrent_kernel_init`."""
 
 
+@functools.lru_cache(maxsize=None)
+def _s2d_conv_assembly(block: int = 8) -> torch.Tensor:
+    """0/1 assembly tensor T[a,b,di,dj,uv,pq] (f32, CPU) mapping a 3x3
+    kernel on a 1-channel map to its space-to-depth-`block` form: output
+    pixel (block*bi+p, block*bj+q) reads input pixel (block*bi+p+a-1,
+    block*bj+q+b-1), which is block (bi+di-1, bj+dj-1) at in-block offset
+    (u, v). Zero padding commutes: offsets outside the map land in the s2d
+    conv's zero-padded border blocks, as SAME padding has them."""
+    bk = block
+    t = torch.zeros(3, 3, 3, 3, bk * bk, bk * bk)
+    for a in range(3):
+        for b in range(3):
+            for p in range(bk):
+                for q in range(bk):
+                    y, x = p + a - 1, q + b - 1
+                    di, dj = (y + bk) // bk, (x + bk) // bk
+                    t[a, b, di, dj, (y % bk) * bk + (x % bk), p * bk + q] = 1.0
+    return t
+
+
 class CanvasConv3x3(nn.Module):
-    """3x3 SAME conv on the policy's canvas trunk (the JAX class's plain
-    path). `fold_bias_into_norm` skips the bias add: a batch-stat norm
-    follows and cancels it exactly, and the param stays for the checkpoint
-    structure. The JAX class's space-to-depth path is not ported."""
+    """3x3 SAME conv on the policy's canvas trunk (NCHW). `fold_bias_into_norm`
+    skips the bias add: a batch-stat norm follows and cancels it exactly,
+    and the param stays for the checkpoint structure.
+
+    `packed=True` (a 1-channel input whose H and W divide by `block`)
+    computes the same conv as ONE 3x3 conv over block^2-channel
+    space-to-depth tiles, with the kernel assembled from `_s2d_conv_assembly`
+    (each assembled entry is one kernel value, so the cast to the compute
+    dtype is exact). It returns the channel-first counterpart of the JAX
+    layout (B, H/b, W/b, b, b, F): (B, F, b, b, H/b, W/b), where
+    [n, f, p, q, i, j] is output pixel (b*i + p, b*j + q) of channel f. A
+    BatchStatNorm over it sees the same values as over the plain output, and
+    a max over axes (2, 3) is the b x b pool."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: Optional[torch.dtype] = None,
-                 fold_bias_into_norm: bool = False):
+                 fold_bias_into_norm: bool = False, block: int = 8):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
         self.fold_bias_into_norm = fold_bias_into_norm
+        self.block = block
         lecun_normal_(self.weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, packed: bool = False) -> torch.Tensor:
         cdt = self.dtype or x.dtype
-        y = F.conv2d(x.to(cdt), self.weight.to(cdt), padding=1)
+        x = x.to(cdt)
+        if not packed:
+            y = F.conv2d(x, self.weight.to(cdt), padding=1)
+            bias_shape = (1, -1, 1, 1)
+        else:
+            y = self._packed(x, cdt)
+            bias_shape = (1, -1, 1, 1, 1, 1)
         if self.fold_bias_into_norm:
             return y
-        return y + self.bias.to(cdt).view(1, -1, 1, 1)
+        return y + self.bias.to(cdt).view(bias_shape)
+
+    def _packed(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+        bsz, cin, h, w = x.shape
+        bk, f = self.block, self.weight.shape[0]
+        if cin != 1:
+            raise ValueError("packed path requires a 1-channel input")
+        if h % bk or w % bk:
+            raise ValueError(f"packed path needs H and W divisible by {bk}, got {h}x{w}")
+        hb, wb = h // bk, w // bk
+        xs = x.reshape(bsz, hb, bk, wb, bk).permute(0, 2, 4, 1, 3)
+        xs = xs.reshape(bsz, bk * bk, hb, wb)              # channel u*bk + v
+        t = _s2d_conv_assembly(bk).to(self.weight.device)
+        kp = torch.einsum("fab,abdeup->fpude", self.weight[:, 0], t)
+        kp = kp.reshape(f * bk * bk, bk * bk, 3, 3)        # out channel f*bk^2 + p*bk + q
+        y = F.conv2d(xs, kp.to(cdt), padding=1)
+        return y.view(bsz, f, bk, bk, hb, wb)
 
 
 class FusedConv3x3(nn.Module):
@@ -319,12 +404,23 @@ def reference_tensor(state_dict, name: str) -> torch.Tensor:
     return torch.as_tensor(state_dict[name], dtype=torch.float32, device="cpu").clone()
 
 
-def standardize(x: torch.Tensor, dim, eps: float, keepdim: bool = True):
+def standardize(x: torch.Tensor, dim, eps: float, keepdim: bool = True, mesh=None):
     """(x - mean) / (std + eps) with unbiased std; sqrt(var + 1e-12) keeps
-    the gradient of a constant column finite (layers.py rationale)."""
+    the gradient of a constant column finite (layers.py rationale). With a
+    data `mesh` and dim=0 (the batch axis) the mean and the variance are
+    the global batch's (ddof 1 over the global count), differentiably."""
     x32 = x.float()
-    mean = x32.mean(dim, keepdim=keepdim)
-    var = x32.var(dim, keepdim=keepdim, correction=1)
+    if mesh is None:
+        mean = x32.mean(dim, keepdim=keepdim)
+        var = x32.var(dim, keepdim=keepdim, correction=1)
+    else:
+        if dim != 0:
+            raise ValueError("standardize over a mesh reduces the batch axis (dim=0)")
+        n = x.shape[0] * mesh.size
+        mean = collectives.psum(x32.sum(0, keepdim=True), mesh) / n
+        var = collectives.psum(((x32 - mean) ** 2).sum(0, keepdim=True), mesh) / (n - 1)
+        if not keepdim:
+            mean, var = mean[0], var[0]
     return ((x32 - mean) / (torch.sqrt(var + 1e-12) + eps)).to(x.dtype)
 
 
@@ -346,7 +442,9 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
     fan-in is in*kh*kw, a DenseGeneral's the product of its input axes),
     orthogonal recurrent kernels (`RecurrentLinear`), zero biases, LPIPS
     lins U(0, 0.1), N(0, std) for the parameters a module names in its
-    `normal_init` {name: std}, and their construction values (ones and
+    `normal_init` {name: std}, lecun-normal at the fan-in it names in its
+    `lecun_init` {name: fan_in} (the MoE's stacked expert kernels), zeros
+    for the names in its `zero_init`, and their construction values (ones and
     zeros) for the norms, which say so by `init_as_constructed`. Any other
     parameter raises. Returns a state dict on the module's device; the
     module is untouched."""
@@ -360,6 +458,10 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
             conv_like = isinstance(m, (nn.Conv2d, nn.Linear, CanvasConv3x3, FusedConv3x3))
             if pname in getattr(m, "normal_init", {}):
                 new.normal_(0.0, m.normal_init[pname], generator=generator)
+            elif pname in getattr(m, "lecun_init", {}):
+                lecun_normal_(new, m.lecun_init[pname], generator)
+            elif pname in getattr(m, "zero_init", ()):
+                new.zero_()
             elif pname == "weight" and isinstance(m, RecurrentLinear):
                 nn.init.orthogonal_(new, generator=generator)
             elif pname == "weight" and isinstance(m, DenseGeneral):

@@ -14,9 +14,11 @@ CUDA); patch tokens are mean-pooled back to frames.
 
 As in the JAX package, the actor has no `value_head` and the critic no
 `head` (flax creates only the parameters its init call reaches). The noise
-is an input: a (B, S) tensor or a `torch.Generator`. Pipeline-parallel
-(pp_microbatches > 0), mixture-of-experts (moe_experts > 0) and ring
-attention are not ported and raise.
+is an input: a (B, S) tensor or a `torch.Generator`. With moe_experts > 0
+each block's FFN is the switch-routed mixture of experts (models/moe.py,
+capacity factor `moe_capacity`); its `moe_aux` is on `block{i}.moe_ff`
+after a call. Pipeline-parallel (pp_microbatches > 0) and
+ring attention are not ported and raise.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class AttentionContextPolicy(nn.Module):
                  patch_tokens: int = 1, temperature: float = 0.7,
                  is_critic: bool = False, dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", pp_microbatches: int = 0,
-                 moe_experts: int = 0):
+                 moe_experts: int = 0, moe_capacity: float = 1.25):
         super().__init__()
         if pp_microbatches > 0:
             raise NotImplementedError(
@@ -61,7 +63,7 @@ class AttentionContextPolicy(nn.Module):
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block{i}", EncoderBlock(
-                hidden_dim, num_heads, dtype, attn_impl, moe_experts))
+                hidden_dim, num_heads, dtype, attn_impl, moe_experts, moe_capacity))
         if is_critic:
             self.value_head = nn.Linear(hidden_dim, 1)
         else:

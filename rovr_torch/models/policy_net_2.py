@@ -14,6 +14,14 @@ current target (rovr_tpu/models/policy_net_2.py).
 The trunk output is flattened in NHWC order (spatial-major), as the JAX
 package flattens, so `final_fc`'s first layer takes the JAX weights as they
 are (transposed) with no row permutation.
+
+`canvas_impl` picks stage 1's layout: "plain" (and "auto", which resolves
+to it, as in the JAX package) runs the 1-channel conv on the canvas;
+"s2d" runs it as one conv over 8x8 space-to-depth tiles
+(`CanvasConv3x3(packed=True)`), then the norm and ReLU on the packed
+tensor and the 8x8 pool as a max over the two block axes. Both are the same
+function on the same parameters; "s2d" is an opt-in, the default stays
+plain (see PERF.md for both paths' times on the card).
 """
 
 from __future__ import annotations
@@ -27,9 +35,11 @@ from rovr_torch.models.layers import (
     BatchStatNorm, CanvasConv3x3, MLP, max_pool, reference_tensor, standardize,
 )
 from rovr_torch.models.policy_net_1 import gumbel_log_softmax
+from rovr_torch.parallel import collectives
 
 LN2 = 0.69314  # the original policy's literal constant (policy_net_2.py:101)
 _TRUNK = (64, 128, 256, 512)
+CANVAS_IMPLS = ("auto", "plain", "s2d")
 
 
 def _trunk_hw(canvas_size: int):
@@ -47,8 +57,12 @@ class PolicyNet2(nn.Module):
                  temperature: float = 0.7, is_critic: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  per_sample_stats: bool = False, canvas_size: int = 160,
-                 feature_dim: int = 1024):
+                 feature_dim: int = 1024, canvas_impl: str = "auto"):
         super().__init__()
+        if canvas_impl not in CANVAS_IMPLS:
+            raise ValueError(f"canvas_impl must be one of {CANVAS_IMPLS}, "
+                             f"got {canvas_impl!r}")
+        self.canvas_impl = canvas_impl
         self.num_frames = num_frames
         self.temperature = temperature
         self.is_critic = is_critic
@@ -70,7 +84,10 @@ class PolicyNet2(nn.Module):
         """(B,C,C,1) -> (B, trunk features) f32."""
         x = canvas.to(self.dtype).permute(0, 3, 1, 2)
         relu = torch.relu
-        x = max_pool(relu(self.norms[0](self.convs[0](x))), (8, 8))
+        if self.canvas_impl == "s2d":   # (B,64,8,8,C/8,C/8); the max is the 8x8 pool
+            x = relu(self.norms[0](self.convs[0](x, packed=True))).amax(dim=(2, 3))
+        else:
+            x = max_pool(relu(self.norms[0](self.convs[0](x))), (8, 8))
         x = max_pool(relu(self.norms[1](self.convs[1](x))), (4, 4))
         x = relu(self.norms[2](self.convs[2](x)))
         x = relu(self.norms[3](self.convs[3](x)))
@@ -132,10 +149,12 @@ class PolicyNet2(nn.Module):
         return (lp[:, 0] + lp[:, 1]) / 2 + LN2
 
     def value(self, canvas, target_feat) -> torch.Tensor:
-        """Critic: batch-standardize the stacked feature, then final_fc."""
+        """Critic: batch-standardize the stacked feature (over the global
+        batch inside `collectives.global_batch(mesh)`), then final_fc."""
         if not self.is_critic:
             raise ValueError("value() is for the critic head")
-        stacked = standardize(self._stacked(canvas, target_feat), dim=0, eps=0.001)
+        stacked = standardize(self._stacked(canvas, target_feat), dim=0, eps=0.001,
+                              mesh=collectives.current_mesh())
         return self.final_fc(stacked)[:, 0]
 
 

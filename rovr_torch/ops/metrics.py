@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from rovr_torch.parallel import collectives
+
 _EPS32 = torch.finfo(torch.float32).eps
 
 
@@ -93,14 +95,18 @@ def _exposure_sums(hole: torch.Tensor, tgt_idx: torch.Tensor, pairs: torch.Tenso
 
 
 def context_exposure(hole: torch.Tensor, tgt_idx: torch.Tensor,
-                     pairs: torch.Tensor) -> torch.Tensor:
+                     pairs: torch.Tensor, mesh=None) -> torch.Tensor:
     """The fraction of the targets' hole pixels visible in at least one
-    chosen context frame, pooled over the batch.
+    chosen context frame, pooled over the batch (with a data `mesh`, over
+    the global batch: both sums are all-reduced).
 
     hole: (B, S, H, W, 1), 1 where corruption removed content; tgt_idx:
     (T, B) target frame per step; pairs: (T, B, 2) chosen contexts."""
     num, den = _exposure_sums(hole.float(), tgt_idx, pairs)
-    return num.sum(1).sum() / den.sum(1).sum().clamp_min(1.0)
+    num, den = num.sum(1).sum(), den.sum(1).sum()
+    if mesh is not None:
+        num, den = collectives.all_reduce_(torch.stack([num, den]), mesh).unbind()
+    return num / den.clamp_min(1.0)
 
 
 def context_exposure_per_clip(hole: torch.Tensor, tgt_idx: torch.Tensor,

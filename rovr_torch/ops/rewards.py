@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from rovr_torch.parallel import collectives
+
 
 def rewards_to_go(rewards: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
     """Reverse discounted cumulative sum along axis 0.
@@ -19,8 +21,15 @@ def rewards_to_go(rewards: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
 
 
 def normalized_advantage(rtgs: torch.Tensor, values: torch.Tensor,
-                         eps: float = 1e-10) -> torch.Tensor:
-    """A = rtg - V (V detached), standardized with the unbiased std."""
+                         eps: float = 1e-10, mesh=None) -> torch.Tensor:
+    """A = rtg - V (V detached), standardized with the unbiased std. With a
+    data `mesh` the mean and the std are the global batch's (ddof 1 over the
+    global count)."""
     a = rtgs - values.detach()
-    std = a.std(correction=1) if a.numel() > 1 else a.new_zeros(())
-    return (a - a.mean()) / (std + eps)
+    if mesh is None:
+        std = a.std(correction=1) if a.numel() > 1 else a.new_zeros(())
+        return (a - a.mean()) / (std + eps)
+    n = a.numel() * mesh.size
+    mean = collectives.psum(a.sum(), mesh) / n
+    var = collectives.psum(((a - mean) ** 2).sum(), mesh) / (n - 1) if n > 1 else 0.0 * mean
+    return (a - mean) / (torch.sqrt(var) + eps)

@@ -49,7 +49,7 @@ from rovr_torch.models.action_lstm import ActionLSTM
 from rovr_torch.models.layers import flax_init_state
 from rovr_torch.models.local_net import LocalNetUNet
 from rovr_torch.models.policy_attention import AttentionContextPolicy
-from rovr_torch.models.policy_net_1 import PolicyNet1
+from rovr_torch.models.policy_net_1 import PolicyNet1, gumbel_noise
 from rovr_torch.models.policy_net_2 import PolicyNet2
 from rovr_torch.models.raft import RAFTSmall, pairwise_flows, total_flow_magnitude
 from rovr_torch.models.vgg_lpips import LPIPS
@@ -57,6 +57,8 @@ from rovr_torch.models.video_processor import VideoProcessor, resize_bilinear
 from rovr_torch.ops.metrics import context_exposure, spatio_reward
 from rovr_torch.ops.ppo import critic_loss, ppo_clip_actor_loss
 from rovr_torch.ops.rewards import normalized_advantage, rewards_to_go
+from rovr_torch.parallel import collectives
+from rovr_torch.parallel.mesh import Mesh, local_rows, shard_batch
 
 Policy = Union[PolicyNet2, AttentionContextPolicy]
 
@@ -173,7 +175,8 @@ def make_policy(cfg: Config, dt: torch.dtype, is_critic: bool = False) -> Policy
             depth=m.attn_depth, patch_tokens=m.attn_patch_tokens,
             temperature=m.pn2_temperature, dtype=dt, attn_impl=m.attn_impl,
             pp_microbatches=m.attn_pp_microbatches,
-            moe_experts=m.attn_moe_experts, is_critic=is_critic,
+            moe_experts=m.attn_moe_experts, moe_capacity=m.attn_moe_capacity,
+            is_critic=is_critic,
         )
     if cfg.rl.context_policy == "canvas":
         return PolicyNet2(
@@ -421,8 +424,12 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
             rewards: bool = True,
             gumbel: Optional[torch.Tensor] = None,
             init: Optional[EpisodeInit] = None,
-            gumbel1: Optional[torch.Tensor] = None) -> RolloutOut:
-    """The episode (ROVR.forward), gradient-free.
+            gumbel1: Optional[torch.Tensor] = None,
+            mesh: Optional[Mesh] = None) -> RolloutOut:
+    """The episode (ROVR.forward), gradient-free. With a data `mesh` the
+    batch is this rank's shard and the policies' batch statistics are the
+    global batch's (`collectives.global_batch`); the metrics stay this
+    shard's.
 
     video/org_video: (B, S, H, W, 3) in [0,1]. When cfg.rl.greedy is off the
     Gumbel noise is `gumbel` (T, B, S), or is drawn from `generator`
@@ -446,6 +453,13 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     use_spatio_reward also adds it to the last step's reward before the
     rewards-to-go.
     """
+    with collectives.global_batch(mesh):
+        return _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel,
+                        init, gumbel1)
+
+
+def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, init,
+             gumbel1) -> RolloutOut:
     rl = cfg.rl
     b, s = video.shape[:2]
     dev = video.device
@@ -633,7 +647,7 @@ def _adam_state(opt: torch.optim.Adam, named) -> dict:
 
 def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
                traj: Trajectory, generator: Optional[torch.Generator] = None,
-               gumbel: Optional[torch.Tensor] = None
+               gumbel: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None
                ) -> Tuple[ROVRState, Dict[str, torch.Tensor]]:
     """PPO-clip on actor2/critic2 (ROVR.ppo): the advantage from rtg - V(obs)
     normalized once, then n_updates_per_ppo epochs, each an actor Adam step
@@ -646,7 +660,23 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
     on their own Adam states (`PPO/actor1_loss`, `PPO/critic1_loss`). Its
     logprob is the noise-free one (exact mode), so it draws no noise. Every
     PPO batch is the whole B*T rows: pi1's norms take the batch's
-    statistics, so splitting it would change the result."""
+    statistics, so splitting it would change the result.
+
+    With a data `mesh` the trajectory is this rank's shard: the advantage
+    is normalized over the global batch, the batch statistics are global,
+    and every gradient is averaged over the ranks before its Adam step, so
+    every rank's parameters and Adam states stay identical. The returned
+    losses are this shard's."""
+    with collectives.global_batch(mesh):
+        return _ppo_update(state, mods, cfg, traj, generator, gumbel, mesh)
+
+
+def _pmean_grads(named, mesh: Optional[Mesh]) -> None:
+    if mesh is not None:
+        collectives.pmean_grads([p for _, p in named], mesh)
+
+
+def _ppo_update(state, mods, cfg, traj, generator, gumbel, mesh):
     rl = cfg.rl
     obs = tuple(_flat(x) for x in traj.obs)
     tgt, acs = _flat(traj.target_idx), _flat(traj.actions)
@@ -657,7 +687,7 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
     a_named = _trainable(mods.actor2, state.actor2_params)
     c_named = _trainable(mods.critic2, state.critic2_params)
     with torch.no_grad():
-        adv = normalized_advantage(rtgs, _policy_value(mods, cfg, obs, tgt))
+        adv = normalized_advantage(rtgs, _policy_value(mods, cfg, obs, tgt), mesh=mesh)
     a_opt = _adam(a_named, state.actor2_opt, rl.actor_lr)
     c_opt = _adam(c_named, state.critic2_opt, rl.critic_lr)
     for e in range(rl.n_updates_per_ppo):
@@ -665,10 +695,12 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
         a_opt.zero_grad(set_to_none=True)
         a_loss = actor_loss(mods, cfg, obs, tgt, acs, old_logp, adv, noise, generator)
         a_loss.backward()
+        _pmean_grads(a_named, mesh)
         _adam_step(a_opt, a_named)
         c_opt.zero_grad(set_to_none=True)
         c_loss = value_loss(mods, cfg, obs, tgt, rtgs)
         c_loss.backward()
+        _pmean_grads(c_named, mesh)
         _adam_step(c_opt, c_named)
     for mod in (mods.actor2, mods.critic2):
         mod.requires_grad_(False)
@@ -682,13 +714,14 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
     metrics = {"PPO/actor_loss": a_loss.detach(), "PPO/critic_loss": c_loss.detach()}
     if rl.use_policy1 and rl.ppo_policy1 and traj.obs1 is not None:
         with record_function("rovr/pi1_ppo"):
-            state, m1 = _ppo_policy1(state, mods, cfg, traj, rtgs, generator)
+            state, m1 = _ppo_policy1(state, mods, cfg, traj, rtgs, generator, mesh)
         metrics.update(m1)
     return state, metrics
 
 
 def _ppo_policy1(state: ROVRState, mods: ROVRModules, cfg: Config, traj: Trajectory,
-                 rtgs: torch.Tensor, generator: Optional[torch.Generator]):
+                 rtgs: torch.Tensor, generator: Optional[torch.Generator],
+                 mesh: Optional[Mesh] = None):
     """PPO-clip on pi1/V1 (JAX rl.py's second epoch scan): V1 on the
     flattened obs1 for the normalized advantage, then n_updates_per_ppo
     epochs of an actor1 Adam step and a critic1 Adam step."""
@@ -698,7 +731,7 @@ def _ppo_policy1(state: ROVRState, mods: ROVRModules, cfg: Config, traj: Traject
     a_named = _trainable(mods.actor1, state.actor1_params)
     c_named = _trainable(mods.critic1, state.critic1_params)
     with torch.no_grad():
-        adv = normalized_advantage(rtgs, mods.critic1.value(*obs1))
+        adv = normalized_advantage(rtgs, mods.critic1.value(*obs1), mesh=mesh)
     a_opt = _adam(a_named, state.actor1_opt, rl.actor_lr)
     c_opt = _adam(c_named, state.critic1_opt, rl.critic_lr)
     for _ in range(rl.n_updates_per_ppo):
@@ -706,10 +739,12 @@ def _ppo_policy1(state: ROVRState, mods: ROVRModules, cfg: Config, traj: Traject
         a_loss = ppo_clip_actor_loss(
             mods.actor1.logprob(*obs1, act1, generator=generator), old_lp1, adv, rl.clip)
         a_loss.backward()
+        _pmean_grads(a_named, mesh)
         _adam_step(a_opt, a_named)
         c_opt.zero_grad(set_to_none=True)
         c_loss = critic_loss(mods.critic1.value(*obs1), rtgs)
         c_loss.backward()
+        _pmean_grads(c_named, mesh)
         _adam_step(c_opt, c_named)
     for mod in (mods.actor1, mods.critic1):
         mod.requires_grad_(False)
@@ -728,7 +763,8 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
                generator: Optional[torch.Generator] = None,
                gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                masks: Optional[torch.Tensor] = None,
-               gumbel1: Optional[torch.Tensor] = None):
+               gumbel1: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None):
     """One RL step: rollout with rewards, then PPO (ROVR.train). Returns
     (state, metrics, reconstructed).
 
@@ -751,15 +787,73 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
     g_roll, g_ppo = gumbel if gumbel is not None else (None, None)
     out = rollout(state, mods, cfg, video, org_video, generator, True, g_roll,
-                  gumbel1=gumbel1)
-    state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo)
+                  gumbel1=gumbel1, mesh=mesh)
+    state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo, mesh)
     metrics = dict(out.metrics)
     metrics.update(ppo_metrics)
+    if mesh is not None:   # equal shards: the mean of the shards' means
+        metrics = collectives.pmean_dict(metrics, mesh)
     if masks is not None:
         hole = 1.0 - torch.as_tensor(masks).to(dev)[..., :1].float()
         metrics["Episode/exposure"] = context_exposure(
-            hole, out.traj.target_idx, out.traj.actions)
+            hole, out.traj.target_idx, out.traj.actions, mesh)
     return state, metrics, out.reconstructed
+
+
+def make_sharded_train_step(mesh: Mesh, mods: ROVRModules, cfg: Config):
+    """The data-parallel train step over `mesh` (the JAX package's
+    `make_sharded_train_step`, which runs `train_step` on the global batch
+    with GSPMD). Returns step(state, video, org_video, generator=None,
+    gumbel=None, masks=None, gumbel1=None) -> (state, metrics, this rank's
+    reconstructions).
+
+    Every rank passes the same global batch (B divisible by the mesh size)
+    and the same replicated state (`parallel.mesh.replicate`); each takes its B/size
+    clips. The Gumbel noise is the global draw, given (`gumbel` = (rollout
+    (T, B, S), PPO (n_updates, B*T, S)), `gumbel1` (T, B, pn1_num_frames))
+    or drawn from `generator` (default: seeded from cfg.run.seed on the
+    mesh's device), sliced to this rank's rows. The batch statistics, the
+    advantage and the metrics are the global batch's and the gradients are
+    averaged before every Adam step (pi2's actor and critic, pi1's and V1's
+    with use_policy1), so the step equals `train_step` on the global batch
+    given the same noise, and the state stays identical on every rank.
+
+    The mixture-of-experts FFN is refused: its slot numbering and capacity
+    are the global token order's and count, which goes with expert
+    parallelism (ROADMAP.md Queue 1 item 10)."""
+    rl = cfg.rl
+    if rl.context_policy == "attention" and cfg.model.attn_moe_experts > 0:
+        raise NotImplementedError(
+            "attn_moe_experts > 0 under a data mesh: the MoE's slots and capacity are "
+            "global (cumsum over the global token order, cap from the global N), which "
+            "comes with expert parallelism (ROADMAP.md Queue 1 item 10)")
+
+    def step(state: ROVRState, video, org_video,
+             generator: Optional[torch.Generator] = None,
+             gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             masks=None, gumbel1: Optional[torch.Tensor] = None):
+        b, s = video.shape[:2]
+        rows = local_rows(mesh, b)
+        t = rl.time_steps
+        if gumbel is None or (rl.use_policy1 and gumbel1 is None):
+            gen = generator or torch.Generator(device=mesh.device).manual_seed(cfg.run.seed)
+            width = s if rl.context_policy == "attention" else cfg.model.pn2_num_frames
+            if gumbel is None:
+                gumbel = (gumbel_noise((t, b, width), gen, mesh.device),
+                          gumbel_noise((rl.n_updates_per_ppo, b * t, width), gen,
+                                       mesh.device))
+            if rl.use_policy1 and gumbel1 is None:
+                gumbel1 = gumbel_noise((t, b, cfg.model.pn1_num_frames), gen, mesh.device)
+        g_roll, g_ppo = (torch.as_tensor(g).to(mesh.device) for g in gumbel)
+        g_roll = g_roll[:, rows]
+        g_ppo = g_ppo[:, rows.start * t:rows.stop * t]   # _flat's rows: b * T + t
+        if gumbel1 is not None:
+            gumbel1 = torch.as_tensor(gumbel1).to(mesh.device)[:, rows]
+        video, org_video, masks = shard_batch(mesh, (video, org_video, masks))
+        return train_step(state, mods, cfg, video, org_video, gumbel=(g_roll, g_ppo),
+                          masks=masks, gumbel1=gumbel1, mesh=mesh)
+
+    return step
 
 
 class HostSyntheticSource:

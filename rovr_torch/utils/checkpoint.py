@@ -12,6 +12,11 @@ a background thread, as Orbax saves asynchronously; `wait` joins the write.
 The write goes to a hidden temporary directory that is renamed to the step's
 directory only once the file is complete, so a crash never leaves a half
 step directory.
+
+Under a data mesh (`mesh=`, the state replicated on every rank) rank 0
+alone writes, and every `wait` ends in a barrier, so the other ranks wait
+until the write is on disk; every rank restores from it, and the restored
+states agree.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import time
 from typing import Any, Optional
 
 import torch
+
+from rovr_torch.parallel import collectives
 
 CHECKPOINT_FILE = "state.pt"
 
@@ -88,9 +95,13 @@ def _like(template: Any, loaded: Any) -> Any:
 
 
 class CheckpointManager:
-    """Save every `every`-th step, keep the newest `max_to_keep`."""
+    """Save every `every`-th step, keep the newest `max_to_keep`. With a
+    data `mesh`, every rank makes the same calls: rank 0 writes, the others
+    wait for it."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3, every: int = 1):
+    def __init__(self, directory: str, max_to_keep: int = 3, every: int = 1,
+                 mesh=None):
+        self.mesh = mesh
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.every = max(1, every)
@@ -122,6 +133,8 @@ class CheckpointManager:
         if not force and step % self.every != 0:
             return False
         self.wait()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return True
         plain = _to_plain(state)
         self._thread = threading.Thread(target=self._write, args=(step, plain),
                                         name=f"checkpoint-{step}", daemon=True)
@@ -150,10 +163,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def wait(self) -> None:
-        """Join the write in flight; raise what it raised."""
+        """Join the write in flight (under a mesh, every rank then waits for
+        rank 0's); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            collectives.barrier(self.mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -20,6 +20,9 @@ by module. The port's modules keep the flax names, so the map is by rule:
   * a DenseGeneral kernel (3-D: q/k/v (in,H,D), out (H,D,out), the attention
     policy's tokenize (feat,P,H)) keeps flax's layout: the port's
     DenseGeneral stores it so.
+  * the mixture-of-experts FFN (`moe_ff`): its stacked expert parameters
+    w1 (E,d,f), b1, w2 (E,f,d), b2 keep their names and layouts (the port
+    multiplies them with `bmm` as they are); its `router` is a Dense.
 
 No row permutation is needed for PolicyNet2's first final_fc layer: the
 port flattens its conv trunk in the same NHWC order as the JAX package.

@@ -165,13 +165,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tatt._attend(*[torch.zeros(1, 1, 4, 8)] * 3, impl="ring")
     with pytest.raises(NotImplementedError):
-        tatt.EncoderBlock(32, 4, moe_experts=2)
-    with pytest.raises(NotImplementedError):
         tpa.AttentionContextPolicy(num_frames=5, feature_dim=16, hidden_dim=32,
                                    num_heads=2, pp_microbatches=2)
-    with pytest.raises(NotImplementedError):
-        tpa.AttentionContextPolicy(num_frames=5, feature_dim=16, hidden_dim=32,
-                                   num_heads=2, moe_experts=2)
+    # the mixture-of-experts FFN is ported (tests/test_torch_moe.py)
+    assert hasattr(tatt.EncoderBlock(32, 4, moe_experts=2), "moe_ff")
 
 
 # ---------------------------------------------------------------- policy

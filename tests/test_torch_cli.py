@@ -92,8 +92,11 @@ def test_unported_flags_and_commands_refuse(tmp_path, capsys, monkeypatch):
                         lambda cfg, **kw: seen.update(kw) or {})
     assert tcli.main(["pipeline", "--policy1_iterations", "3", "--device", "cpu"]) == 0
     assert seen["policy1_iterations"] == 3 and seen["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # data-parallel serving runs (test_reconstruct_data_parallel_on_the_cpu);
+    # more processes than devices is an error, as in the JAX CLI (no GPU here)
+    with pytest.raises(SystemExit) as e:
         tcli.main(["reconstruct", "--data_parallel", "2"])
+    assert e.value.code == 2
     # pretrain and pipeline read no frame folders (nor do the JAX package's)
     for cmd in ("pretrain", "pipeline"):
         with pytest.raises(ValueError, match="reads no frame folders"):
@@ -144,6 +147,40 @@ def test_rl_then_reconstruct_restored_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert any(line.startswith("Eval/psnr_agentic:") for line in lines)
     assert not any(line.startswith(("Eval/flow_recovery", "Eval/lpips")) for line in lines)
     assert any("4 weight-dependent metrics withheld" in line for line in lines)
+
+
+def test_reconstruct_data_parallel_on_the_cpu(monkeypatch, tmp_path, capfd):
+    """`reconstruct --data_parallel 2 --device cpu` starts two gloo processes
+    and writes the frames `--data_parallel 1` writes (uint8 within 1 LSB:
+    the batch statistics are summed across the ranks); more processes than
+    the CPU has cores, or a batch the count does not divide, is an error."""
+    import cv2
+    import numpy as np
+
+    c = _tiny_config(batch_size=2)
+    tiny = from_dict(dataclasses.asdict(c.replace(
+        model=dataclasses.replace(c.model, **tiny_model_overrides()))))
+    monkeypatch.setattr(tcli, "Config", lambda: tiny)
+    outs = {}
+    for n in (1, 2):
+        outs[n] = tmp_path / f"dp{n}"
+        assert tcli.main(["reconstruct", "--num_clips", "4", "--batch_size", "2",
+                          "--vid_length", "5", "--out", str(outs[n]), "--data_parallel",
+                          str(n), "--device", "cpu"]) == 0
+    printed = capfd.readouterr().out
+    assert "frames_written: 20" in printed and "data_parallel: 2" in printed
+    names = sorted(os.path.relpath(p, outs[1]) for p in glob.glob(str(outs[1] / "*" / "*.png")))
+    assert len(names) == 20
+    assert names == sorted(os.path.relpath(p, outs[2])
+                           for p in glob.glob(str(outs[2] / "*" / "*.png")))
+    for name in names:
+        a, b = (cv2.imread(str(outs[n] / name)).astype(int) for n in (1, 2))
+        assert np.abs(a - b).max() <= 1, name
+    for argv in (["--data_parallel", str(10 * (os.cpu_count() or 1))],
+                 ["--data_parallel", "2", "--batch_size", "3"]):
+        with pytest.raises(SystemExit) as e:
+            tcli.main(["reconstruct", "--device", "cpu"] + argv)
+        assert e.value.code == 2
 
 
 def test_rl_ppo_policy1_on_the_cpu(monkeypatch, tmp_path, capsys):

@@ -458,3 +458,86 @@ def test_prefetcher_staging_is_bitwise_and_stream_safe(cuda, tmp_path):
     path = tmp_path / "frame.png"
     path.write_bytes(png_bytes(img))
     np.testing.assert_array_equal(native_loader.decode_png(str(path)), img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.25, 0.3], ids=["cap1.25", "drops"])
+def test_moe_index_dispatch_on_the_card(cuda, factor):
+    """The MoE FFN at config 5's width (d 256, 4 experts) on a rollout
+    step's 2,048 tokens in bf16: the index dispatch against the one-hot
+    einsum twin, forward and input gradient, within bf16 rounding (2^-8 of
+    the largest value); with factor 0.3 tokens are dropped and their rows
+    are exactly 0 in both."""
+    from rovr_torch.models.layers import flax_init_state
+    from rovr_torch.models.moe import MoEFeedForward
+
+    m = MoEFeedForward(256, 4, factor).cuda()
+    m.load_state_dict(flax_init_state(m, torch.Generator().manual_seed(0)))
+    twin = MoEFeedForward(256, 4, factor, dispatch="onehot").cuda()
+    twin.load_state_dict(m.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(8, 256, 256, device="cuda", generator=gen).bfloat16()
+    xi, xo = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yi, yo = m(xi), twin(xo)
+    (yi.float() ** 2).sum().backward()
+    (yo.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert yi.dtype == torch.bfloat16 and torch.isfinite(yi.float()).all()
+    for got, ref in ((yi, yo), (xi.grad, xo.grad)):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2 ** -8 * ref.float().abs().max().item(), err
+    dropped = (yo.float() == 0).all(-1)
+    assert torch.equal((yi.float() == 0).all(-1), dropped)
+    assert bool(dropped.any()) == (factor < 1.0)
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_size_one_over_nccl(cuda):
+    """`make_sharded_train_step` over a NCCL group of one against
+    `train_step` at config 5's widths (batch 2, 8 frames), same state and
+    noise: the collectives run (counted) and change nothing beyond f32
+    rounding. Metrics within 1e-3 relative (+1e-4); the updated actor and
+    critic within 2*lr*n_updates everywhere (Adam turns the sign of a
+    near-zero gradient into a +-lr step) and within 1e-5 on 99% of entries;
+    the reconstructions within one uint8 step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from rovr_torch.config import config_rl_scaled
+    from rovr_torch.parallel import collectives, launch
+    from rovr_torch.parallel.mesh import make_mesh
+    from rovr_torch.train import rl
+
+    c = config_rl_scaled(vid_length=8, data_parallel=1)
+    cfg = c.replace(rl=dataclasses.replace(c.rl, batch_size=2, n_updates_per_ppo=2))
+    mods = rl.make_modules(cfg, device="cuda")
+    state = rl.init_state(cfg, mods, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, w = cfg.data.frame_size
+    video, org = (torch.rand(2, 8, h, w, 3, device="cuda", generator=gen) for _ in range(2))
+    t = cfg.rl.time_steps
+    noise = (rl.gumbel_noise((t, 2, 8), gen, "cuda"),
+             rl.gumbel_noise((cfg.rl.n_updates_per_ppo, 2 * t, 8), gen, "cuda"))
+    want = rl.train_step(state, mods, cfg, video, org, gumbel=noise)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(cfg.mesh)
+        before = collectives.CALLS["all_reduce"]
+        got = rl.make_sharded_train_step(mesh, mods, cfg)(state, video, org, gumbel=noise)
+        torch.cuda.synchronize()
+        assert collectives.CALLS["all_reduce"] - before > 0
+    finally:
+        dist.destroy_process_group()
+    assert set(got[1]) == set(want[1])
+    for k, v in want[1].items():
+        np.testing.assert_allclose(float(got[1][k]), float(v), rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    bound = 2 * cfg.rl.actor_lr * cfg.rl.n_updates_per_ppo
+    for field in ("actor2_params", "critic2_params"):
+        a, b = getattr(got[0], field), getattr(want[0], field)
+        diff = torch.cat([(a[k] - b[k]).abs().flatten() for k in b])
+        assert float(diff.max()) <= bound, field
+        assert float((diff <= 1e-5).float().mean()) >= 0.99, field
+    assert (got[2].float() - want[2].float()).abs().max().item() <= 1 / 255

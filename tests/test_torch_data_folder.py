@@ -15,7 +15,7 @@ The readers: `VideoFolderDataset` (float and `stage_uint8`) and
 seed: corrupted, original and masks within 1 LSB, the teacher's pairs
 equal. The prefetcher keeps index order, raises a worker's exception in
 the consumer, closes with full queues, holds under twice as many workers
-as cores at a 1 us switch interval, and refuses `sharding`. `rl.run`
+as cores at a 1 us switch interval, and refuses a `sharding` that is no mesh. `rl.run`
 over a tiny tree logs finite steps and the prefetcher's wait, and writes
 its checkpoint.
 """
@@ -270,7 +270,8 @@ def test_prefetcher_order_errors_close_and_sharding():
     p.close(timeout=5.0)
     assert not any(t.is_alive() for t in p._workers + [p._stager])
     assert p._host_q.empty() and p._device_q.empty()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # sharding takes a data mesh (tests/test_torch_data_parallel.py), nothing else
+    with pytest.raises(TypeError, match="Mesh"):
         dataset.DevicePrefetcher(Slow(2), sharding=object(), to_device=False)
 
 

@@ -16,7 +16,9 @@ _WALK = """
 import importlib, pkgutil, sys
 import rovr_torch
 names = [m.name for m in pkgutil.walk_packages(rovr_torch.__path__, "rovr_torch.")]
-assert "rovr_torch.models.action_lstm" in names, names
+for want in ("models.action_lstm", "models.moe", "parallel.mesh", "parallel.collectives",
+             "parallel.launch"):
+    assert "rovr_torch." + want in names, names
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
@@ -32,7 +34,7 @@ def test_every_module_imports_without_jax_or_rovr_tpu():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 41  # every module of the package was walked, __main__ too
+    assert int(count) >= 46  # every module of the package was walked, __main__ too
     assert bad == "[]", f"rovr_torch pulled in {bad}"
 
 
