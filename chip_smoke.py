@@ -171,7 +171,26 @@ before a path is driven and read just after. Phases:
      `make_sharded_train_step` against `train_step` at config 5 on the same
      state and noise, the all-reduces counted and the same K1-K4 launches;
      `reconstruct_clips(mesh=)` against `reconstruct_clips()` (1 LSB, equal
-     actions); `DevicePrefetcher(sharding=mesh)` bitwise.
+     actions); `DevicePrefetcher(sharding=mesh)` bitwise;
+ 29. the model axis at config 5 on a (1, 1) NCCL mesh (in process): the
+     tensor-parallel step, the ring-attention step, the step with 4 experts
+     and the pipelined step (2 microbatches), each against `train_step` on
+     the same state and noise after one PPO epoch (every leaf's Adam first
+     moment within MOMENT_TOL; the parameters within 2*lr; on one rank but
+     for the ring phase 28's metric and 1e-5 bounds), a planted fault (the
+     TP and EP gradients through `reduce_from_model` doubled) that the
+     first-moment gate must catch, and at five epochs their K1-K4 launches
+     (TP, EP, PP: 192/150/20/20; the ring: 192 K1 and no K2-K4, its blocks
+     being torch products), collectives, the seconds of a first and a
+     second step and peak memory; then `parallel.dryrun.dryrun_multichip`
+     over every visible card (one card: pass 1, data parallel).
+
+`python3 chip_smoke.py --grid 2x2` (four cards) builds the kernels and runs
+phase 29's paths and its planted fault on a (2, 2) NCCL mesh in four
+processes, each against `train_step` on its card, then
+`dryrun_multichip(4)` (all eight passes); `--grid 1x1` is phase 29 alone,
+and `--grid DxM --gate` its one-epoch checks and planted fault alone;
+it writes chiprun_out/chip_smoke_grid4.json.
 
 Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
 card's name and power limit, and as the last line
@@ -2903,6 +2922,389 @@ def phase_dp1(torch, np, conv, attention, rl, infer, dataset, cfg5, video, org, 
     return res
 
 
+MODEL_AXIS_PATHS = ("tp", "ring", "ep", "pp")   # phase 29's steps on the model axis
+# launches per config-5 step of each path on a model axis of 1: the ring's
+# blocks are torch products (the JAX ring is jnp), so no K2-K4 in the encoder
+MODEL_AXIS_LAUNCHES = {"tp": TRAIN_LAUNCHES, "ep": TRAIN_LAUNCHES, "pp": TRAIN_LAUNCHES,
+                       "ring": {"K1": 192, "K2": 0, "K3": 0, "K4": 0}}
+
+
+def model_axis_config(cfg5, path):
+    """Config 5 as each model-axis path runs it, and the config of its
+    single-device reference (`train_step` on the global batch)."""
+    import dataclasses
+
+    m = cfg5.model
+    over = {"tp": {}, "ring": dict(attn_impl="ring"), "pp": dict(attn_pp_microbatches=2),
+            "ep": dict(attn_moe_experts=MOE_EXPERTS, attn_moe_capacity=1.25)}[path]
+    cfg = cfg5.replace(model=dataclasses.replace(m, **over))
+    ref = cfg5 if path != "ep" else cfg
+    return cfg, ref
+
+
+def _params_close(torch, got, want, bound):
+    """phase_dp1's parameter bounds: within `bound` everywhere, within 1e-5
+    on 99% of entries; the measured max and share."""
+    out = {}
+    for field in ("actor2_params", "critic2_params"):
+        a, ref = got[field], getattr(want, field)
+        d = torch.cat([(a[k] - ref[k]).abs().flatten() for k in ref])
+        out[field] = dict(max=d.max().item(), share_1e5=(d <= 1e-5).float().mean().item())
+    ok = all(p["max"] <= bound and p["share_1e5"] >= 0.99 for p in out.values())
+    return ok, out
+
+
+def ring_vs_flash(torch, attention, mesh):
+    """Ring attention (over the mesh's model axis) at the PPO shape
+    (512,4,256,64) in bf16 against the exact attention (f32 products of the
+    same bf16 values): out and dq, dk, dv of sum(out * w), each within
+    ATTN_TOL of max|exact|. The flash op (K2-K4, which round P and dS to
+    bf16 as their plain twins do) on the same inputs is recorded beside it,
+    not held here (phase 3 holds it to its twins)."""
+    from rovr_torch.models.attention import attend_plain
+    from rovr_torch.parallel.ring_attention import ring_attend
+
+    gen = torch.Generator(device="cuda").manual_seed(290)
+    b, h, l, _, d = ATTN_SHAPES["ppo"]
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    w = torch.randn(b, h, l, d, generator=gen, device="cuda")
+
+    def run(fn, dtype):
+        xs = [t.to(dtype).detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*xs)
+        (out.float() * w).sum().backward()
+        return [out.float()] + [t.grad.float() for t in xs]
+
+    want = run(attend_plain, torch.float32)
+    res = {}
+    for name, fn in (("ring", lambda *x: ring_attend(*x, mesh)),
+                     ("flash", attention.flash_attention)):
+        got = run(fn, torch.bfloat16)
+        res[name] = {part: ((g - r).abs().max() / r.abs().max()).item()
+                     for part, g, r in zip(("out", "dq", "dk", "dv"), got, want)}
+    res["ok"] = all(e <= ATTN_TOL for e in res["ring"].values())
+    return res
+
+
+def _one_epoch(cfg):
+    import dataclasses
+
+    return cfg.replace(rl=dataclasses.replace(cfg.rl, n_updates_per_ppo=1))
+
+
+# Adam first moments after one PPO epoch (0.1 * g): each leaf's largest
+# |m - m_ref| over its network's largest |m_ref| (the CPU tests' rule, at
+# 1e-3 in f32 there). Held on the critic: on one H100 the sound paths read
+# at most 6.0e-4 there and the planted fault 4.9e-2 to 0.27 (PERF.md, slice
+# 8). The actor is recorded: its largest first moment is 2e-4 against the
+# critic's 1.3 (at PPO's first epoch its gradient is a sum of advantage-
+# weighted terms that mostly cancel), so the ring's other bf16 rounding
+# alone moves it by 0.19, above the planted fault in EP (0.11)
+MOMENT_TOL = 1e-2
+
+
+def _moments_close(torch, got, want):
+    """The first moments of the actor and critic (gathered whole) against
+    `want`'s: per network the worst leaf's reading; the critic's held to
+    MOMENT_TOL."""
+    out = {}
+    for field in ("actor2", "critic2"):
+        mine, ref = got[f"{field}_opt"]["exp_avg"], getattr(want, f"{field}_opt")["exp_avg"]
+        top = max(v.abs().max().item() for v in ref.values())
+        errs = {k: (mine[k] - ref[k]).abs().max().item() / top for k in ref}
+        leaf = max(errs, key=errs.get)
+        out[field] = dict(max=errs[leaf], leaf=leaf, top=top)
+    return out["critic2"]["max"] <= MOMENT_TOL, out
+
+
+def _reference_step(torch, rl, ref_cfg, device, video, org, masks, noise):
+    """`train_step` on the global batch from the seed-0 state: the new
+    state, the metrics and the host seconds."""
+    mods = rl.make_modules(ref_cfg, device=device)
+    st = rl.init_state(ref_cfg, mods, seed=0)
+    n_up = ref_cfg.rl.n_updates_per_ppo
+    torch.cuda.synchronize()
+    t0 = time.time()
+    new, metrics, _ = rl.train_step(st, mods, ref_cfg, video, org,
+                                    gumbel=(noise[0], noise[1][:n_up]), masks=masks)
+    torch.cuda.synchronize()
+    return new, {k: float(v) for k, v in metrics.items()}, time.time() - t0
+
+
+def _path_step(torch, rl, cfg, mesh, path, video, org, masks, noise):
+    """The model-axis path's modules, seed-0 state and step on `mesh`."""
+    from rovr_torch.parallel import tp
+
+    tensor_parallel = path == "tp"
+    mods = rl.make_modules(cfg, mesh=mesh, tensor_parallel=tensor_parallel)
+    state = rl.init_state(cfg, mods, seed=0)
+    make = tp.make_tp_train_step if tensor_parallel else rl.make_sharded_train_step
+    step = make(mesh, mods, cfg)
+    n_up = cfg.rl.n_updates_per_ppo
+    return mods, lambda: step(state, video, org, gumbel=(noise[0], noise[1][:n_up]),
+                              masks=masks)
+
+
+def model_axis_steps(torch, conv, attention, rl, cfg5, mesh, video, org, masks, noise,
+                     timing=True):
+    """Each model-axis path of config 5 on `mesh` (tensor parallel, ring
+    attention, 4 experts, the pipeline with 2 microbatches) against
+    `train_step` on the global batch with the same global noise, on every
+    rank. After one PPO epoch: each leaf's Adam first moment of the critic
+    within MOMENT_TOL (`_moments_close`; Adam's first step is lr * sign(g), so the
+    parameters alone cannot see a gradient off by a positive factor); the
+    updated actor and critic (gathered whole) within 2*lr everywhere; on a
+    (1, 1) mesh, but for the ring (f32 products where K2-K4 round P and dS to
+    bf16: `ring_vs_flash` holds its attention and gradients), the metrics
+    within 1e-3 relative + 1e-4 and the parameters within 1e-5 on 99% of
+    entries; elsewhere the metrics and the share are recorded. Then the path
+    at the config's five epochs, for timing (unless `timing` is False): K1-K4
+    launches and collectives of its first step, host seconds of the first
+    and of a second step from the same state, peak memory, the metrics'
+    distance recorded."""
+    from rovr_torch.parallel import collectives, tp
+
+    refs, res = {}, {}
+    one_rank = mesh.size * mesh.model_size == 1
+    for path in MODEL_AXIS_PATHS:
+        cfg_full, ref_full = model_axis_config(cfg5, path)
+        r = {}
+        runs = [("one_epoch", _one_epoch(cfg_full), _one_epoch(ref_full))]
+        for label, cfg, ref_cfg in runs + [("full", cfg_full, ref_full)] * timing:
+            n_up = cfg.rl.n_updates_per_ppo
+            key = (ref_cfg.model.attn_moe_experts, n_up)
+            if key not in refs:
+                refs[key] = _reference_step(torch, rl, ref_cfg, mesh.device, video, org,
+                                            masks, noise)
+            want, want_m, ref_s = refs[key]
+            mods, step = _path_step(torch, rl, cfg, mesh, path, video, org, masks, noise)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(collectives.CALLS)
+            _zero_counts(conv, attention)   # counts from here are this path's
+            times = []
+            for i in range(2 if label == "full" else 1):
+                t0 = time.time()
+                out = step()
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                if i == 0:
+                    new, metrics, recon = out
+                    counts = _counts(conv, attention)
+                    calls = {k: v - before.get(k, 0) for k, v in collectives.CALLS.items()
+                             if v - before.get(k, 0)}
+            merr = {k: abs(float(metrics[k]) - v) / (abs(v) + 1e-1) for k, v in want_m.items()}
+            ok = (set(metrics) == set(want_m) and new.step == 1
+                  and bool(torch.isfinite(recon).all()))
+            r[label] = dict(launches=counts, collectives=calls, sec=times, ref_sec=ref_s,
+                            metrics_rel=merr, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if label == "one_epoch":
+                whole = tp.gather_state(new, tp.state_shardings(mods), mesh)
+                _, pdiff = _params_close(torch, {f: getattr(whole, f) for f in (
+                    "actor2_params", "critic2_params")}, want, 2 * cfg.rl.actor_lr)
+                moments_ok, moments = _moments_close(torch, whole._asdict(), want)
+                held = one_rank and path != "ring"
+                ok = (ok and moments_ok and all(p["max"] <= 2 * cfg.rl.actor_lr
+                                                for p in pdiff.values())
+                      and (not held or (
+                          all(abs(float(metrics[k]) - v) <= 1e-3 * abs(v) + 1e-4
+                              for k, v in want_m.items())
+                          and all(p["share_1e5"] >= 0.99 for p in pdiff.values()))))
+                r[label].update(params=pdiff, moments=moments)
+                del whole
+            r[label]["ok"] = ok
+            del mods, step, new
+            torch.cuda.empty_cache()
+        if not timing:
+            res[path] = dict(ok=r["one_epoch"]["ok"], one_epoch=r["one_epoch"])
+            continue
+        full = r["full"]
+        res[path] = dict(ok=r["one_epoch"]["ok"] and full["ok"], launches=full["launches"],
+                         collectives=full["collectives"], sec_first=full["sec"][0],
+                         sec_second=full["sec"][1], ref_sec=full["ref_sec"],
+                         peak_mem_gb=full["peak_mem_gb"], one_epoch=r["one_epoch"], full=full)
+    return res
+
+
+def planted_fault(torch, rl, cfg5, mesh, video, org, masks, noise):
+    """The first-moment gate against a planted fault: the TP and the EP step
+    after one epoch with `reduce_from_model`'s gradient doubled (on a model
+    axis of 2 that is the Trap of an all-reducing backward; on one card it
+    reads as it would there). Each must read above MOMENT_TOL on the critic
+    (the network `model_axis_steps` holds). On one card
+    also a look at the (1, 1) actor's last-bit distance: the TP step with the
+    advantage normalised without the mesh (the same function on one rank),
+    its parameters against `train_step`'s."""
+    from rovr_torch.parallel import collectives, tp
+
+    class _Twice(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return 2 * g
+
+    res = {}
+    reduce = collectives.reduce_from_model
+    collectives.reduce_from_model = lambda x, m: _Twice.apply(reduce(x, m))
+    try:
+        for path in ("tp", "ep"):
+            cfg, ref_cfg = (_one_epoch(c) for c in model_axis_config(cfg5, path))
+            want = _reference_step(torch, rl, ref_cfg, mesh.device, video, org, masks, noise)[0]
+            mods, step = _path_step(torch, rl, cfg, mesh, path, video, org, masks, noise)
+            whole = tp.gather_state(step()[0], tp.state_shardings(mods), mesh)
+            res[path] = _moments_close(torch, whole._asdict(), want)[1]
+    finally:
+        collectives.reduce_from_model = reduce
+    res["caught"] = all(res[p]["critic2"]["max"] > MOMENT_TOL for p in ("tp", "ep"))
+    if mesh.size * mesh.model_size == 1:
+        normalized = rl.normalized_advantage
+        rl.normalized_advantage = lambda *a, mesh=None: normalized(*a)
+        try:
+            cfg, ref_cfg = (_one_epoch(c) for c in model_axis_config(cfg5, "tp"))
+            want = _reference_step(torch, rl, ref_cfg, mesh.device, video, org, masks, noise)[0]
+            mods, step = _path_step(torch, rl, cfg, mesh, "tp", video, org, masks, noise)
+            new = step()[0]
+            res["meshless_advantage_params"] = _params_close(torch, {f: getattr(new, f) for f in (
+                "actor2_params", "critic2_params")}, want, 2 * cfg.rl.actor_lr)[1]
+        finally:
+            rl.normalized_advantage = normalized
+    return res
+
+
+def phase_model_axis(torch, conv, attention, rl, cfg5, video, org, masks):
+    """Config 5's model-axis paths on a (1, 1) NCCL mesh (a TCP store on a
+    localhost port, in this process) against `train_step`
+    (`model_axis_steps`): TP, EP and PP must launch 192 K1, 150 K2, 20 K3,
+    20 K4 a step, the ring 192 K1 and no K2-K4 (its blocks are torch
+    products); the first-moment gate must catch `planted_fault`; then
+    `dryrun_multichip` over every visible card (one card: pass 1)."""
+    import torch.distributed as dist
+
+    from rovr_torch.config import MeshConfig
+    from rovr_torch.parallel import dryrun, launch
+    from rovr_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    b, s, t = video.shape[0], video.shape[1], cfg5.rl.time_steps
+    noise = (rl.gumbel_noise((t, b, s), gen, "cuda"),
+             rl.gumbel_noise((cfg5.rl.n_updates_per_ppo, b * t, s), gen, "cuda"))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=1))
+        res = model_axis_steps(torch, conv, attention, rl, cfg5, mesh, video, org, masks,
+                               noise)
+        res["ring_attention"] = ring_vs_flash(torch, attention, mesh)
+        res["planted_fault"] = planted_fault(torch, rl, cfg5, mesh, video, org, masks, noise)
+    finally:
+        dist.destroy_process_group()
+    for path, r in res.items():
+        log(f"model axis (1, 1), {path}: {r}")
+    bad = {p: res[p] for p in MODEL_AXIS_PATHS
+           if not res[p]["ok"] or res[p]["launches"] != MODEL_AXIS_LAUNCHES[p]}
+    if not res["ring_attention"]["ok"]:
+        bad["ring_attention"] = res["ring_attention"]
+    if not res["planted_fault"]["caught"]:
+        bad["planted_fault"] = res["planted_fault"]
+    if bad:
+        raise AssertionError(f"model-axis paths disagree with train_step: {bad}")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    passes = dryrun.dryrun_multichip(torch.cuda.device_count())
+    res["dryrun"] = dict(passes=passes, seconds=time.time() - t0)
+    log(f"dryrun_multichip({torch.cuda.device_count()}): {len(passes)} passes in "
+        f"{res['dryrun']['seconds']:.1f} s: {passes}")
+    return res
+
+
+def _grid_rank(_mesh, out_dir, grid, timing):
+    """One process of `--grid DxM`: config 5's model-axis paths on the
+    (D, M) NCCL mesh, against `train_step` on this card; each process
+    writes its record."""
+    import numpy as np
+    import torch
+
+    from rovr_torch.config import Config
+    from rovr_torch.data import synthetic
+    from rovr_torch.ops import attention, conv
+    from rovr_torch.train import rl
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dp, mp = grid
+    from rovr_torch.config import MeshConfig
+    from rovr_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
+    cfg5 = config5(Config)
+    _, (video, org), masks, _ = config5_clips(torch, np, synthetic, cfg5)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    b, s, t = video.shape[0], video.shape[1], cfg5.rl.time_steps
+    noise = (rl.gumbel_noise((t, b, s), gen, "cuda"),
+             rl.gumbel_noise((cfg5.rl.n_updates_per_ppo, b * t, s), gen, "cuda"))
+    res = model_axis_steps(torch, conv, attention, rl, cfg5, mesh, video, org, masks, noise,
+                           timing)
+    res["ring_attention"] = ring_vs_flash(torch, attention, mesh)
+    res["planted_fault"] = planted_fault(torch, rl, cfg5, mesh, video, org, masks, noise)
+    res["rank"] = (mesh.rank, mesh.model_rank)
+    with open(os.path.join(out_dir, f"grid_rank{mesh.rank * mp + mesh.model_rank}.json"),
+              "w") as f:
+        json.dump(res, f, indent=1)
+
+
+def main_grid(grid: str, gate_only: bool = False) -> int:
+    """`python3 chip_smoke.py --grid DxM [--gate]`: D*M cards. Builds the
+    kernels, runs config 5's model-axis paths on a (D, M) NCCL mesh in D*M
+    processes (`_grid_rank`), then `dryrun_multichip(D*M)`; prints each
+    rank's record, the card line and the last line as the one-card run
+    does. `--gate`: the one-epoch checks and the planted fault alone (no
+    five-epoch timing, no dry run)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device is visible; this script runs on the GPU")
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from rovr_torch.ops import cuda_build
+    from rovr_torch.parallel import dryrun, launch
+
+    dims = tuple(int(x) for x in grid.split("x"))
+    n = dims[0] * dims[1]
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {card_line()}")
+    cuda_build.build(["fused_conv3x3", "flash_attention"])
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.time()
+    launch.spawn(_grid_rank, n, "cuda", args=(out_dir, dims, not gate_only))
+    grid_s = time.time() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"grid_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        log(f"grid {dims} rank {r}: {ranks[-1]}")
+    t0 = time.time()
+    passes = [] if gate_only else dryrun.dryrun_multichip(n)
+    log(f"dryrun_multichip({n}): {len(passes)} passes in {time.time() - t0:.1f} s: {passes}")
+    bad = [(r, p) for r, rec in enumerate(ranks) for p in MODEL_AXIS_PATHS + ("ring_attention",)
+           if not rec[p]["ok"]] + [(r, "planted_fault") for r, rec in enumerate(ranks)
+                                   if not rec["planted_fault"]["caught"]]
+    with open(os.path.join(out_dir, f"chip_smoke_grid{n}.json"), "w") as f:
+        json.dump(dict(grid=dims, ranks=ranks, grid_s=grid_s, dryrun=passes,
+                       card=card_line(), kind=kind), f, indent=1)
+    if bad or len(passes) != (0 if gate_only else 8 if n % 2 == 0 else 1):
+        raise AssertionError(f"grid {dims}: paths off train_step {bad}, passes {len(passes)}")
+    log(f"card: {card_line()}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3042,6 +3444,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp1 = timed(phase_dp1, torch, np, conv, attention, rl, infer, dataset, cfg5, video5, org5,
                 masks5, u8_5)
+    torch.cuda.empty_cache()
+    model_axis = timed(phase_model_axis, torch, conv, attention, rl, cfg5, video5, org5, masks5)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -3131,6 +3535,8 @@ def main() -> int:
         row["launches_per_decoder_fwd_bwd"] = blocks_moe["decoder"]["launches"][kid]
         row["launches_per_moe_step"] = train5_moe["launches_per_step"][kid]
         row["launches_per_dp1_step"] = dp1["launches"][kid]
+        row["launches_per_model_axis_step"] = {
+            path: model_axis[path]["launches"][kid] for path in MODEL_AXIS_PATHS}
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
                   serving=serving,
@@ -3141,7 +3547,8 @@ def main() -> int:
                   source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
                   train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, frame_tree=frame_tree,
                   folder_rl=folder_rl, convert=convert_res, blocks_moe=blocks_moe,
-                  train5_moe=train5_moe, s2d=s2d, dp1=dp1, phase_seconds=phase_s,
+                  train5_moe=train5_moe, s2d=s2d, dp1=dp1, model_axis=model_axis,
+                  phase_seconds=phase_s,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
@@ -3156,4 +3563,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--grid" and sys.argv[3:] in ([], ["--gate"]):
+        sys.exit(main_grid(sys.argv[2], gate_only=sys.argv[3:] == ["--gate"]))
     sys.exit(main())

@@ -360,7 +360,7 @@ def _reconstruct_rank(mesh, cfg: Config, args) -> None:
                         device=args.device if mesh is None else None, mesh=mesh)
     if mesh is not None:
         summary["data_parallel"] = mesh.size
-        if mesh.rank != 0:
+        if not mesh.first:
             return
     for k, v in summary.items():
         print(f"{k}: {v}", flush=True)

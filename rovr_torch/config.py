@@ -4,10 +4,8 @@ The port's own copy of `rovr_tpu/config.py`: the same frozen dataclass tree,
 field for field and with the same defaults, so a config built for one package
 can be rebuilt for the other with `dataclasses.asdict`. The port keeps its own
 copy rather than importing the JAX package's, so that `rovr_torch` runs where
-JAX is not installed. Some fields steer parts of the JAX package the port has
-not reached yet (the mesh, pi1 and its ActionLSTM, the parallel attention
-paths, the data loaders' workers); the port's entry points reject the options
-they do not run. See the JAX file for the history behind each knob.
+JAX is not installed. The port's entry points reject the options they do
+not run. See the JAX file for the history behind each knob.
 """
 
 from __future__ import annotations

@@ -148,7 +148,7 @@ def run(
                 yield np.clip(f * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
     written = clips = 0
-    writes = mesh is None or mesh.rank == 0
+    writes = mesh is None or mesh.first
     for recon, _ in reconstruct_clips(cfg, state, mods, batches(), mesh=mesh):
         # fixed batch size b; trim the tail to exactly num_clips clips
         take = min(recon.shape[0], num_clips - clips)

@@ -190,9 +190,11 @@ class Linear(nn.Linear):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """`bias=False`: the product alone (a row-parallel part, whose sum
+        over the model axis takes the bias once)."""
         cdt = self.compute_dtype or torch.promote_types(x.dtype, torch.float32)
-        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt) if bias else None)
 
 
 class ConvBlock(nn.Module):
@@ -389,12 +391,13 @@ class DenseGeneral(nn.Module):
         self.dtype = dtype
         lecun_normal_(self.weight, self.fan_in)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """`bias=False`: the product alone, as `Linear`'s."""
         cdt = self.dtype or torch.promote_types(x.dtype, torch.float32)
         batch = x.shape[:x.dim() - len(self.in_shape)]
         w = self.weight.to(cdt).reshape(self.fan_in, -1)
-        y = torch.addmm(self.bias.to(cdt).reshape(-1),
-                        x.to(cdt).reshape(-1, self.fan_in), w)
+        x2 = x.to(cdt).reshape(-1, self.fan_in)
+        y = torch.addmm(self.bias.to(cdt).reshape(-1), x2, w) if bias else x2 @ w
         return y.reshape(batch + self.out_shape)
 
 
@@ -446,15 +449,23 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
     `lecun_init` {name: fan_in} (the MoE's stacked expert kernels), zeros
     for the names in its `zero_init`, and their construction values (ones and
     zeros) for the norms, which say so by `init_as_constructed`. Any other
-    parameter raises. Returns a state dict on the module's device; the
-    module is untouched."""
+    parameter raises. A parameter the module holds a part of (its
+    `model_shards` {name: (axis, parts, index)}, tensor and expert
+    parallelism) is drawn whole and cut to the part, so the parts are those
+    of the single-device draw. Returns a state dict on the module's device;
+    the module is untouched."""
     out = {}
     for mname, m in module.named_modules():
         own = list(m.named_parameters(recurse=False)) \
             + list(m.named_buffers(recurse=False))
+        shards = getattr(m, "model_shards", {})
         for pname, t in own:
             key = f"{mname}.{pname}" if mname else pname
-            new = torch.empty(t.shape, dtype=t.dtype)
+            shape = list(t.shape)
+            if pname in shards:
+                dim, parts, _ = shards[pname]
+                shape[dim] *= parts
+            new = torch.empty(shape, dtype=t.dtype)
             conv_like = isinstance(m, (nn.Conv2d, nn.Linear, CanvasConv3x3, FusedConv3x3))
             if pname in getattr(m, "normal_init", {}):
                 new.normal_(0.0, m.normal_init[pname], generator=generator)
@@ -465,7 +476,7 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
             elif pname == "weight" and isinstance(m, RecurrentLinear):
                 nn.init.orthogonal_(new, generator=generator)
             elif pname == "weight" and isinstance(m, DenseGeneral):
-                lecun_normal_(new, m.fan_in, generator)
+                lecun_normal_(new, math.prod(shape[:len(m.in_shape)]), generator)
             elif pname == "weight" and isinstance(m, nn.ConvTranspose2d):
                 lecun_normal_(new, t.shape[0] * t.shape[2] * t.shape[3], generator)
             elif pname == "weight" and conv_like:
@@ -480,5 +491,8 @@ def flax_init_state(module: nn.Module, generator: torch.Generator) -> dict:
             else:
                 raise ValueError(f"flax_init_state: no initializer for {key} of "
                                  f"{type(m).__name__}")
+            if pname in shards:
+                dim, parts, index = shards[pname]
+                new = new.chunk(parts, dim)[index].clone()
             out[key] = new.to(t.device)
     return out

@@ -17,8 +17,18 @@ As in the JAX package, the actor has no `value_head` and the critic no
 is an input: a (B, S) tensor or a `torch.Generator`. With moe_experts > 0
 each block's FFN is the switch-routed mixture of experts (models/moe.py,
 capacity factor `moe_capacity`); its `moe_aux` is on `block{i}.moe_ff`
-after a call. Pipeline-parallel (pp_microbatches > 0) and
-ring attention are not ported and raise.
+after a call.
+
+On a mesh (`mesh`, this rank's batch shard in every call): ring attention
+(attn_impl="ring") over `seq_axis`; the MoE routed over the global batch,
+its experts split over the model axis; `tensor_parallel` splits the
+blocks' heads and FFN columns over the model axis; and pp_microbatches > 0
+pipelines the encoder stack over the model axis (parallel/pp.py: depth
+blocks in model_size stages, that many microbatches), where inside a stage
+the attention is "jnp" when the policy's is "ring" and the MoE is local to
+its microbatch (its capacity from the microbatch's tokens), as in the JAX
+`_apply_blocks_pipelined`. Ring attention and the pipeline need a mesh;
+the pipeline and tensor parallelism cannot share the one model axis.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from rovr_torch.models.attention import EncoderBlock
 from rovr_torch.models.layers import DenseGeneral, standardize
 from rovr_torch.models.policy_net_1 import gumbel_log_softmax
 from rovr_torch.models.policy_net_2 import LN2
+from rovr_torch.parallel.mesh import MODEL_AXIS
+from rovr_torch.parallel.pp import pipeline_layers
 
 
 class AttentionContextPolicy(nn.Module):
@@ -43,11 +55,21 @@ class AttentionContextPolicy(nn.Module):
                  patch_tokens: int = 1, temperature: float = 0.7,
                  is_critic: bool = False, dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", pp_microbatches: int = 0,
-                 moe_experts: int = 0, moe_capacity: float = 1.25):
+                 moe_experts: int = 0, moe_capacity: float = 1.25, mesh=None,
+                 seq_axis=None, tensor_parallel: bool = False):
         super().__init__()
-        if pp_microbatches > 0:
-            raise NotImplementedError(
-                "attn_pp_microbatches > 0 (pipeline parallel) is not in the port")
+        if (attn_impl == "ring" or pp_microbatches > 0) and mesh is None:
+            raise ValueError("attn_impl='ring' / pp_microbatches>0 need a mesh")
+        if pp_microbatches > 0 and tensor_parallel:
+            raise ValueError("pipeline and tensor parallelism on the one model axis: the "
+                             "stages and the heads cannot both split it")
+        self.mesh = mesh
+        self.pp_microbatches = pp_microbatches
+        # pipelined: each stage applies whole blocks to its microbatches
+        self.pipelined = pp_microbatches > 0 and mesh.model_size > 1
+        if self.pipelined:
+            attn_impl = "jnp" if attn_impl == "ring" else attn_impl
+            mesh = seq_axis = None
         self.num_frames = num_frames
         self.hidden_dim = hidden_dim
         self.patch_tokens = p = patch_tokens
@@ -63,7 +85,8 @@ class AttentionContextPolicy(nn.Module):
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block{i}", EncoderBlock(
-                hidden_dim, num_heads, dtype, attn_impl, moe_experts, moe_capacity))
+                hidden_dim, num_heads, dtype, attn_impl, moe_experts, moe_capacity,
+                mesh, seq_axis, tensor_parallel))
         if is_critic:
             self.value_head = nn.Linear(hidden_dim, 1)
         else:
@@ -78,8 +101,15 @@ class AttentionContextPolicy(nn.Module):
         mark = F.one_hot(target_idx.reshape(-1).long(), s).float()
         tok = tok + mark[:, :, None, None] * self.target_emb
         x = tok.reshape(b, s * p, self.hidden_dim).to(self.dtype)
-        for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+        blocks = [getattr(self, f"block{i}") for i in range(self.depth)]
+        if self.pipelined:
+            x = pipeline_layers(
+                lambda params, a: torch.func.functional_call(blocks[0], params, (a,)),
+                [dict(blk.named_parameters()) for blk in blocks], x, self.mesh,
+                MODEL_AXIS, self.pp_microbatches)
+        else:
+            for blk in blocks:
+                x = blk(x)
         return x.reshape(b, s, p, self.hidden_dim).mean(2).float()
 
     def _masked(self, x: torch.Tensor, target_idx: torch.Tensor) -> torch.Tensor:

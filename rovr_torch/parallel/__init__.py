@@ -1,1 +1,2 @@
-"""rovr_torch.parallel: data parallelism over torch.distributed."""
+"""rovr_torch.parallel: the (data, model) mesh over torch.distributed: data,
+tensor, pipeline and expert parallelism, ring attention, the dry run."""

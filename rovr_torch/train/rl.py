@@ -143,16 +143,35 @@ _OWN_STREAM = ("raft", "actor1", "critic1", "lstm")  # drawn apart in init_state
 
 
 def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
-                 device=None) -> ROVRModules:
-    """Build the module zoo on `device` (CUDA unless device="cpu"). `dtype`
-    is the compute dtype (bf16 by default); parameters are f32."""
-    dev = resolve(device)
+                 device=None, mesh: Optional[Mesh] = None,
+                 tensor_parallel: bool = False) -> ROVRModules:
+    """Build the module zoo on `device` (CUDA unless device="cpu"; the
+    mesh's device with `mesh`). `dtype` is the compute dtype (bf16 by
+    default); parameters are f32.
+
+    `mesh` (parallel.mesh) binds the attention policy to it, as the JAX
+    make_modules does: ring attention (cfg.model.attn_impl "ring", over the
+    model axis) and the pipeline (attn_pp_microbatches > 0) need it, and the
+    MoE (attn_moe_experts > 0) on it routes over the global batch with its
+    experts split over the model axis. `tensor_parallel` splits the policy's
+    heads and FFN columns over the model axis (`parallel.tp.
+    make_tp_train_step`). Modules bound to a mesh expect this rank's batch
+    shard and run their collectives on every call."""
+    dev = mesh.device if mesh is not None and device is None else resolve(device)
     dt = dtype if dtype is not None else torch.bfloat16
     m = cfg.model
+    if cfg.rl.context_policy == "attention" and mesh is None and (
+            m.attn_impl == "ring" or m.attn_pp_microbatches > 0):
+        raise ValueError("attn_impl='ring' / attn_pp_microbatches>0 require "
+                         "make_modules(mesh=...)")
+    if tensor_parallel and (mesh is None or cfg.rl.context_policy != "attention"):
+        raise ValueError("tensor_parallel splits the attention policy over a mesh's "
+                         "model axis: it needs context_policy 'attention' and a mesh")
     mods = ROVRModules(
         vp=make_video_processor(cfg, dt),
-        actor2=make_policy(cfg, dt),
-        critic2=make_policy(cfg, dt, is_critic=True),
+        actor2=make_policy(cfg, dt, mesh=mesh, tensor_parallel=tensor_parallel),
+        critic2=make_policy(cfg, dt, is_critic=True, mesh=mesh,
+                            tensor_parallel=tensor_parallel),
         local_net=LocalNetUNet(channels=m.local_net_channels, dtype=dt),
         lpips=make_lpips(cfg, dt),
         raft=_maybe_raft(cfg, dt),
@@ -164,9 +183,11 @@ def make_modules(cfg: Config, dtype: Optional[torch.dtype] = None,
     return mods
 
 
-def make_policy(cfg: Config, dt: torch.dtype, is_critic: bool = False) -> Policy:
+def make_policy(cfg: Config, dt: torch.dtype, is_critic: bool = False,
+                mesh: Optional[Mesh] = None, tensor_parallel: bool = False) -> Policy:
     """The context policy cfg.rl.context_policy names (PolicyNet2 for
-    "canvas", AttentionContextPolicy for "attention"), on the CPU."""
+    "canvas", AttentionContextPolicy for "attention"), on the CPU; the
+    attention policy bound to `mesh` (see make_modules)."""
     m = cfg.model
     if cfg.rl.context_policy == "attention":
         return AttentionContextPolicy(
@@ -176,7 +197,9 @@ def make_policy(cfg: Config, dt: torch.dtype, is_critic: bool = False) -> Policy
             temperature=m.pn2_temperature, dtype=dt, attn_impl=m.attn_impl,
             pp_microbatches=m.attn_pp_microbatches,
             moe_experts=m.attn_moe_experts, moe_capacity=m.attn_moe_capacity,
-            is_critic=is_critic,
+            is_critic=is_critic, mesh=mesh,
+            seq_axis=cfg.mesh.model_axis if m.attn_impl == "ring" else None,
+            tensor_parallel=tensor_parallel,
         )
     if cfg.rl.context_policy == "canvas":
         return PolicyNet2(
@@ -801,14 +824,14 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
 
 
 def make_sharded_train_step(mesh: Mesh, mods: ROVRModules, cfg: Config):
-    """The data-parallel train step over `mesh` (the JAX package's
+    """The train step over `mesh` (the JAX package's
     `make_sharded_train_step`, which runs `train_step` on the global batch
     with GSPMD). Returns step(state, video, org_video, generator=None,
     gumbel=None, masks=None, gumbel1=None) -> (state, metrics, this rank's
     reconstructions).
 
-    Every rank passes the same global batch (B divisible by the mesh size)
-    and the same replicated state (`parallel.mesh.replicate`); each takes its B/size
+    Every rank passes the same global batch (B divisible by the data axis)
+    and the same state (`parallel.mesh.replicate`); each takes its B/size
     clips. The Gumbel noise is the global draw, given (`gumbel` = (rollout
     (T, B, S), PPO (n_updates, B*T, S)), `gumbel1` (T, B, pn1_num_frames))
     or drawn from `generator` (default: seeded from cfg.run.seed on the
@@ -818,15 +841,19 @@ def make_sharded_train_step(mesh: Mesh, mods: ROVRModules, cfg: Config):
     with use_policy1), so the step equals `train_step` on the global batch
     given the same noise, and the state stays identical on every rank.
 
-    The mixture-of-experts FFN is refused: its slot numbering and capacity
-    are the global token order's and count, which goes with expert
-    parallelism (ROADMAP.md Queue 1 item 10)."""
+    On a (data, model) mesh the batch splits over the data axis and every
+    rank of a model row takes the same rows. Ring attention, the pipeline,
+    the MoE and tensor parallelism need the modules built on this mesh
+    (`make_modules(cfg, mesh=mesh)`); a rank then holds its parts of split
+    parameters and their Adam moments (`parallel.tp.gather_state` makes the
+    whole state)."""
     rl = cfg.rl
-    if rl.context_policy == "attention" and cfg.model.attn_moe_experts > 0:
-        raise NotImplementedError(
-            "attn_moe_experts > 0 under a data mesh: the MoE's slots and capacity are "
-            "global (cumsum over the global token order, cap from the global N), which "
-            "comes with expert parallelism (ROADMAP.md Queue 1 item 10)")
+    m = cfg.model
+    if rl.context_policy == "attention" and (
+            m.attn_impl == "ring" or m.attn_pp_microbatches > 0 or m.attn_moe_experts > 0):
+        if mods.actor2.mesh is not mesh or mods.critic2.mesh is not mesh:
+            raise ValueError("ring attention, the pipeline and the MoE run on the step's "
+                             "mesh: build the modules with rl.make_modules(cfg, mesh=mesh)")
 
     def step(state: ROVRState, video, org_video,
              generator: Optional[torch.Generator] = None,

@@ -13,10 +13,14 @@ The write goes to a hidden temporary directory that is renamed to the step's
 directory only once the file is complete, so a crash never leaves a half
 step directory.
 
-Under a data mesh (`mesh=`, the state replicated on every rank) rank 0
-alone writes, and every `wait` ends in a barrier, so the other ranks wait
-until the write is on disk; every rank restores from it, and the restored
-states agree.
+Under a mesh (`mesh=`, the state replicated over the data axis) the
+mesh's first process alone writes, and every `wait` ends in a barrier over
+the whole mesh, so the others wait until the write is on disk; every rank
+restores from it, and the restored states agree. A state whose parameters
+are split over the model axis (tensor or expert parallelism) names its
+split in `shardings` (`parallel.tp.state_shardings(mods)`): it is saved
+gathered, whole, and restored split (the JAX manager restores by
+`shardings`).
 """
 
 from __future__ import annotations
@@ -96,12 +100,16 @@ def _like(template: Any, loaded: Any) -> Any:
 
 class CheckpointManager:
     """Save every `every`-th step, keep the newest `max_to_keep`. With a
-    data `mesh`, every rank makes the same calls: rank 0 writes, the others
-    wait for it."""
+    `mesh`, every rank makes the same calls: the first writes, the others
+    wait for it; `shardings` ({state field: {name: axis}}) says which
+    tensors each model rank holds a part of."""
 
     def __init__(self, directory: str, max_to_keep: int = 3, every: int = 1,
-                 mesh=None):
+                 mesh=None, shardings=None):
+        if shardings and mesh is None:
+            raise ValueError("a split state (shardings) needs the mesh it is split over")
         self.mesh = mesh
+        self.shardings = shardings
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.every = max(1, every)
@@ -133,7 +141,11 @@ class CheckpointManager:
         if not force and step % self.every != 0:
             return False
         self.wait()
-        if self.mesh is not None and self.mesh.rank != 0:
+        if self.shardings:
+            from rovr_torch.parallel import tp
+
+            state = tp.gather_state(state, self.shardings, self.mesh)
+        if self.mesh is not None and not self.mesh.first:
             return True
         plain = _to_plain(state)
         self._thread = threading.Thread(target=self._write, args=(step, plain),
@@ -146,16 +158,21 @@ class CheckpointManager:
         """The newest (or given) step, or None when there is none. With a
         `template`, the state comes back in its structure and each tensor on
         its template tensor's device; without one, as plain dicts on the
-        CPU. `shardings` (the JAX package's sharded restore) is not ported."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "sharded restore is not in the port yet (ROADMAP Queue 1 item 10)")
+        CPU. A split state (`shardings`, default the manager's) comes back as
+        this rank's parts."""
+        shardings = self.shardings if shardings is None else shardings
+        if shardings and self.mesh is None:
+            raise ValueError("a split restore (shardings) needs the manager's mesh")
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         plain = torch.load(os.path.join(self.directory, str(step), CHECKPOINT_FILE),
                            map_location="cpu", weights_only=True)
+        if shardings:
+            from rovr_torch.parallel import tp
+
+            plain = tp.shard_state(plain, shardings, self.mesh)
         return plain if template is None else _like(template, plain)
 
     def latest_step(self) -> Optional[int]:

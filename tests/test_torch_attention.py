@@ -160,13 +160,18 @@ def test_encoder_block_forward_and_gradient():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
+    """Ring attention and the pipeline are ported (tests/test_torch_ring.py,
+    test_torch_pp.py) and need a mesh: without one they raise, never
+    falling back to local attention or the sequential stack."""
+    with pytest.raises(ValueError, match="mesh"):
         tatt.MultiHeadAttention(32, 4, attn_impl="ring")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         tatt._attend(*[torch.zeros(1, 1, 4, 8)] * 3, impl="ring")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         tpa.AttentionContextPolicy(num_frames=5, feature_dim=16, hidden_dim=32,
                                    num_heads=2, pp_microbatches=2)
+    with pytest.raises(ValueError, match="mesh"):
+        tatt.MultiHeadAttention(32, 4, tensor_parallel=True)
     # the mixture-of-experts FFN is ported (tests/test_torch_moe.py)
     assert hasattr(tatt.EncoderBlock(32, 4, moe_experts=2), "moe_ff")
 

@@ -91,9 +91,10 @@ def dp(tmp_path_factory):
         "canvas": _case(_cfg(), 1, serve=True, checkpoint=str(tmp / "ckpt")),
         "attention": _case(_cfg("attention"), 2),
         "policy1": _case(_cfg(policy1=True), 3),
+        "moe": _case(_cfg("attention", attn_moe_experts=2, attn_moe_capacity=0.5), 4),
     }
     inputs = tmp / "inputs.pt"
-    torch.save({"train": cases, "moe_cfg": _cfg("attention", attn_moe_experts=2)}, inputs)
+    torch.save({"train": cases}, inputs)
     launch.spawn(torch_dp_workers.run_all, WORLD, "cpu", args=(str(inputs), str(tmp)),
                  init_method=f"file://{tmp / 'store'}", threads=2)
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
@@ -116,7 +117,8 @@ def dp(tmp_path_factory):
 # their exact gradient is 0
 NORMED_BIAS = re.compile(r"(Conv_0|ConvTranspose_0|head1|head2)\.bias$")
 TRAINED = {"canvas": ("actor2", "critic2"), "attention": ("actor2", "critic2"),
-           "policy1": ("actor2", "critic2", "actor1", "critic1")}
+           "policy1": ("actor2", "critic2", "actor1", "critic1"),
+           "moe": ("actor2", "critic2")}
 
 
 @pytest.mark.parametrize("name", sorted(TRAINED))
@@ -200,8 +202,18 @@ def test_checkpoint_under_the_mesh_restores_on_every_rank(dp):
 
 
 def test_moe_under_a_mesh_raises(dp):
+    """The MoE under a data mesh (capacity 0.5: tokens dropped) equals the
+    global-batch step (test_sharded_step_equals_the_global_batch_step[moe]):
+    its capacity and slots are the global batch's, from one all-gather of
+    the shards' expert counts per MoE call. Only modules not built on the
+    mesh raise."""
+    want = dp["ref"]["moe"]["state"].actor2_params["block0.moe_ff.w1"]
     for got in dp["ranks"]:
-        assert got["moe"] is not None and "item 10" in got["moe"] and "global" in got["moe"]
+        moe = got["moe"]
+        assert moe["calls"].get("all_gather", 0) > 0
+        assert torch.allclose(moe["state"].actor2_params["block0.moe_ff.w1"], want,
+                              rtol=0, atol=2 * dp["cases"]["moe"]["cfg"].rl.actor_lr)
+        assert got["moe_unbound"] is not None and "mesh" in got["moe_unbound"]
 
 
 def test_collectives_over_gloo(dp):
@@ -220,8 +232,11 @@ def test_collectives_over_gloo(dp):
         # backward all-reduces, so each rank holds the sum over ranks / 2
         assert torch.equal(c["pmean_grad"], torch.tensor([1.0, 2.0]))
         assert "gloo" in c["wrong_device"]
-        assert c["refusals"]["model_parallel"].startswith("NotImplementedError")
-        assert "item 10" in c["refusals"]["model_parallel"]
+        # model_parallel = the world: a (1, 2) grid, rank r at model index r
+        grid = c["refusals"]["model_parallel"]
+        assert grid["shape"] == {"data": 1, "model": WORLD} and grid["index"] == (0, r)
+        assert torch.equal(grid["ring"], torch.tensor([float((r - 1) % WORLD)]))
+        assert c["refusals"]["grid"].startswith("ValueError")
         assert c["refusals"]["data_parallel"].startswith("ValueError")
         # every train step went through the group: batch statistics, the
         # advantage, the gradient means and the metrics

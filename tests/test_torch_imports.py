@@ -17,7 +17,8 @@ import importlib, pkgutil, sys
 import rovr_torch
 names = [m.name for m in pkgutil.walk_packages(rovr_torch.__path__, "rovr_torch.")]
 for want in ("models.action_lstm", "models.moe", "parallel.mesh", "parallel.collectives",
-             "parallel.launch"):
+             "parallel.launch", "parallel.tp", "parallel.pp", "parallel.ring_attention",
+             "parallel.dryrun"):
     assert "rovr_torch." + want in names, names
 for n in names:
     importlib.import_module(n)

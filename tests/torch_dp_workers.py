@@ -29,13 +29,19 @@ class Items:
 
 
 def _refusals(mesh) -> dict:
-    out = {}
-    for name, cfg in (("model_parallel", MeshConfig(data_parallel=0, model_parallel=2)),
+    """The (data, model) grid of model_parallel = the world, and the grids
+    that do not cover the world (refused)."""
+    grid = make_mesh(MeshConfig(data_parallel=0, model_parallel=mesh.size))
+    out = {"model_parallel": dict(shape=grid.shape, index=(grid.rank, grid.model_rank),
+                                  ring=collectives.ppermute_ring(
+                                      torch.tensor([float(grid.model_rank)]), grid,
+                                      "model"))}
+    for name, cfg in (("grid", MeshConfig(data_parallel=mesh.size, model_parallel=2)),
                       ("data_parallel", MeshConfig(data_parallel=mesh.size + 1))):
         try:
             make_mesh(cfg)
             out[name] = None
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
 
@@ -66,13 +72,15 @@ def _wrong_device(mesh):
 
 def _train(mesh, case) -> dict:
     cfg = case["cfg"]
-    mods = rl.make_modules(cfg, dtype=torch.float32, device="cpu")
+    mods = rl.make_modules(cfg, dtype=torch.float32, device="cpu", mesh=mesh)
     state = replicate(mesh, rl.init_state(cfg, mods, seed=0))
     step = rl.make_sharded_train_step(mesh, mods, cfg)
+    before = dict(collectives.CALLS)
     new, metrics, recon = step(state, case["video"], case["org"], gumbel=case["gumbel"],
                                masks=case["masks"], gumbel1=case.get("gumbel1"))
     out = dict(metrics={k: float(v) for k, v in metrics.items()}, recon=recon,
-               state=new, rows=local_rows(mesh, case["video"].shape[0]))
+               state=new, rows=local_rows(mesh, case["video"].shape[0]),
+               calls={k: v - before.get(k, 0) for k, v in collectives.CALLS.items()})
     if case.get("serve"):
         u8 = (case["video"] * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
         out["serve"] = list(infer.reconstruct_clips(cfg, state, mods, [u8], mesh=mesh))
@@ -87,11 +95,13 @@ def _train(mesh, case) -> dict:
     return out
 
 
-def _moe_refusal(mesh, cfg):
+def _moe_unbound(mesh, cfg):
+    """The MoE step with modules not built on the mesh: refused (their
+    routing would be this shard's, not the global batch's)."""
     mods = rl.make_modules(cfg, dtype=torch.float32, device="cpu")
     try:
         rl.make_sharded_train_step(mesh, mods, cfg)
-    except NotImplementedError as e:
+    except ValueError as e:
         return str(e)
     return None
 
@@ -105,5 +115,5 @@ def run_all(mesh, inputs_path: str, out_dir: str) -> None:
     pre = DevicePrefetcher(Items(), num_workers=2, sharding=mesh)
     res["prefetch"] = [tuple(t.clone() for t in item) for item in pre]
     pre.close()
-    res["moe"] = _moe_refusal(mesh, inputs["moe_cfg"])
+    res["moe_unbound"] = _moe_unbound(mesh, inputs["train"]["moe"]["cfg"])
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
