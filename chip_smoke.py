@@ -10,9 +10,10 @@ it, then drives serving (`rovr_torch.infer.reconstruct_clips`) at the full
 width of `Config()` and of config 5, the config-5 RL train step
 (`rovr_torch.train.rl.train_step`) and driver, evaluation, UNet
 pretraining, the imitation warm start, the four-stage pipeline, training
-from a frame tree and reference warm starts, and checks that each path
-really went through the kernels: every launch count is set to 0 just
-before a path is driven and read just after. Phases:
+from a frame tree and reference warm starts, the model axis and the
+double-buffered step, and checks that each path really went through the
+kernels: every launch count is set to 0 just before a path is driven and
+read just after. Phases:
 
   1. device, card name and power limit; TF32 off for the comparisons;
   2. K1 (fused conv3x3) vs its plain version at the three serving shapes,
@@ -183,7 +184,18 @@ before a path is driven and read just after. Phases:
      (TP, EP, PP: 192/150/20/20; the ring: 192 K1 and no K2-K4, its blocks
      being torch products), collectives, the seconds of a first and a
      second step and peak memory; then `parallel.dryrun.dryrun_multichip`
-     over every visible card (one card: pass 1, data parallel).
+     over every visible card (one card: pass 1, data parallel);
+ 30. the double-buffered step `rl.train_step_pipelined` at config 5 (batch
+     8, S = T = 64, phase 9's clips as float): a chain of 3 steps, each on
+     the previous next_init, against 3 `train_step`s and each next_init
+     against `episode_init`, bit for bit (or the gap printed and held at
+     phase 28's bounds), 192/150/20/20 K1-K4 launches a step; the plain
+     and pipelined arms interleaved, 10 timed steps each after a warm-up
+     (sec/step median and spread, frames/s, peak memory, the bytes of one
+     EpisodeInit); one pipelined step under utils.profiling.trace (device
+     time summed against busy, the idle share beside phase 11's, the
+     init's device time and its streams, none of them the step's, and the
+     share of the init's window in which the step's streams ran work).
 
 `python3 chip_smoke.py --grid 2x2` (four cards) builds the kernels and runs
 phase 29's paths and its planted fault on a (2, 2) NCCL mesh in four
@@ -289,22 +301,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, kernel: str | None = None, iters: int = 20) -> float:
+def profiled_ms(torch, fn, kernel: str | None = None, iters: int = 20,
+                captures: int = 3) -> float:
     """Device time of one call of `fn`, summed over the launches of the
     kernels whose name holds `kernel` (every kernel if None; torch.profiler):
     unlike events around a loop, it does not count the host's pace between
-    short launches."""
+    short launches. Every call launches the same kernels, so a capture
+    whose matched launches are not a positive multiple of `iters` lost
+    events and is not an observation: `fn` runs again under a new capture,
+    up to `captures` times; a capture that stays short raises (at iters=1
+    that catches only a capture with no launches at all). Range rows, a
+    record_function's span on the device, are not kernels and are left out
+    (of the paths read with `kernel` None only K1's backward runs under a
+    range)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(captures):
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if kernel is None or kernel in e.key)
-    return us / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0) > 0
+                and not getattr(e, "is_user_annotation", False)
+                and (kernel is None or kernel in e.key)]
+        n = sum(e.count for e in rows)
+        if n and n % iters == 0:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    raise AssertionError(f"the profiler lost launches of {kernel or 'the kernels'} in "
+                         f"{captures} captures of {iters} calls")
 
 
 def conv_bound(b, h, w, cin, cout, peak=PEAK_BF16_FLOPS):
@@ -1078,10 +1105,12 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
         rl.train_step(state, mods, cfg, video, org, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    rows, busy_ms = _profile_rows(torch, prof.key_averages())
+    avgs = prof.key_averages()
+    rows, busy_ms = _profile_rows(torch, avgs)
     if busy_ms == 0:
         log("train profile: the profiler saw no device time (not measured)")
         return dict(wall_ms=wall_ms, device_ms=None)
+    init = _range_times(torch, avgs, ("rovr/episode_init",)).get("rovr/episode_init")
     k2 = {route: sum(r["count"] for r in rows if key in r["kernel"])
           for route, key in K2_KERNELS.items()}
     by_kernel = {kid: {route: sum(r["count"] for r in rows if key in r["kernel"])
@@ -1096,11 +1125,17 @@ def phase_profile_train(torch, rl, cfg, state, mods, video, org):
             for name, keys in (("K1", ("conv3x3_kernel",)), ("K2", tuple(K2_KERNELS.values())),
                                ("K3", tuple(BWD_KERNELS["dq"].values())),
                                ("K4", tuple(BWD_KERNELS["dkv"].values())))}
+    if init is None or not init["device_ms"]:
+        raise AssertionError(f"the train step's profile has no device time under "
+                             f"rovr/episode_init: {init}")
     res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-               kernel_ms=ours, launches_by_kernel=by_kernel, top=rows[:25])
+               kernel_ms=ours, launches_by_kernel=by_kernel, episode_init=init,
+               top=rows[:25])
     log(f"profile of one config-5 train step: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}); port kernels (ms per step) "
         + ", ".join(f"{k} {v:.2f}" for k, v in ours.items())
+        + f"; rovr/episode_init {init['device_ms']:.2f} ms of device time "
+        f"({init['device_ms'] / busy_ms:.3f} of busy; host {init['host_ms']:.1f} ms)"
         + f"; launches by kernel {by_kernel}")
     for r in rows[:25]:
         log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
@@ -1130,6 +1165,9 @@ def _same_tree(a, b) -> bool:
         import torch
 
         return a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
     return a == b
 
 
@@ -3221,6 +3259,226 @@ def phase_model_axis(torch, conv, attention, rl, cfg5, video, org, masks):
     return res
 
 
+PIPE_CHAIN = 3    # pipelined steps held against train_step, each on the previous next_init
+PIPE_STEPS = 10   # timed steps of each arm of phase 30, after one warm-up step each
+
+
+def _gap(got, want):
+    """Largest |got - want| over the tensors of two like trees."""
+    from rovr_torch.utils.profiling import tree_tensors
+
+    return max([(a.float() - b.float()).abs().max().item()
+                for a, b in zip(tree_tensors(got), tree_tensors(want))] or [0.0])
+
+
+def _absmax(tree):
+    from rovr_torch.utils.profiling import tree_tensors
+
+    return max([t.float().abs().max().item() for t in tree_tensors(tree)] or [0.0])
+
+
+def _pipelined_against_plain(torch, rl, cfg, got, want, want_next, steps):
+    """A pipelined step (state, metrics, reconstructed, next_init) against
+    `train_step`'s (state, metrics, reconstructed) and `episode_init` of the
+    next batch: bit for bit, or else phase 28's bounds (metrics within 1e-3
+    relative + 1e-4; actor and critic within 2*lr*n_updates per step taken,
+    and 1e-5 on 99% of entries) and the next init within bf16 rounding of
+    its largest value; returns (bitwise, ok, gaps)."""
+    bitwise = (_same_tree(got[0], want[0]) and _same_tree(got[1], want[1])
+               and _same_tree(got[2], want[2]) and _same_tree(got[3], want_next))
+    if bitwise:
+        return True, True, {}
+    bound = 2 * cfg.rl.actor_lr * cfg.rl.n_updates_per_ppo * steps
+    params_ok, params = _params_close(torch, got[0]._asdict(), want[0], bound)
+    metric_gap = {k: abs(float(got[1][k]) - float(v)) for k, v in want[1].items()}
+    metrics_ok = all(metric_gap[k] <= 1e-3 * abs(float(v)) + 1e-4 for k, v in want[1].items())
+    fields = rl.EpisodeInit._fields
+    init_gap = {f: _gap(getattr(got[3], f), getattr(want_next, f)) for f in fields}
+    init_ok = all(init_gap[f] <= 2 ** -8 * _absmax(getattr(want_next, f))
+                  for f in fields)
+    gaps = dict(params=params, metrics=metric_gap, recon=_gap(got[2], want[2]),
+                next_init=init_gap)
+    return False, params_ok and metrics_ok and init_ok, gaps
+
+
+def _arm_steps(rl, mods, cfg):
+    """Phase 30's arms, each step(state, init, batch, next batch, generator)
+    -> (state, the init of the next batch): `train_step` (its rollout runs
+    the init in line; the init is handed through) and
+    `train_step_pipelined`."""
+    def plain(state, init, cur, nxt, gen):
+        return rl.train_step(state, mods, cfg, *cur, generator=gen)[0], init
+
+    def pipelined(state, init, cur, nxt, gen):
+        out = rl.train_step_pipelined(state, mods, cfg, init, *cur, *nxt, generator=gen)
+        return out[0], out[3]
+
+    return dict(plain=plain, pipelined=pipelined)
+
+
+def _profile_pipelined(torch, rl, profiling, fn, state, mods, cfg, batches, out_dir):
+    """One pipelined step (after one untraced step) under
+    utils.profiling.trace: device time summed against busy (their
+    difference is the time two streams ran at once), the idle share,
+    `rovr/episode_init`'s device time and streams, the step's own streams,
+    and the share of the init's window in which the step's streams ran."""
+    init = rl.episode_init(state, mods, cfg, *batches[0])
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    fn(state, init, batches[0], batches[1], gen)
+    trace_dir = os.path.join(out_dir, "pipelined_trace")
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        t0 = time.time()
+        fn(state, init, batches[0], batches[1], gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    rep = profiling.analyze_trace(trace_dir)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if rep["idle_share"] is None:
+        raise AssertionError("the profiler saw no device work in the pipelined step")
+    init_streams = rep["range_streams"].get("rovr/episode_init", {})
+    step_streams = {st: v["ms"] - init_streams.get(st, [0.0])[0]
+                    for st, v in rep["streams"].items()}
+    step_streams = {st: ms for st, ms in step_streams.items() if ms > 1e-6}
+    if not init_streams or set(init_streams) & set(step_streams):
+        raise AssertionError(f"the init's kernels did not run on a stream of their own: "
+                             f"init {init_streams}, step {step_streams}")
+    window = {str(st): rep["streams"][st] for st in init_streams}
+    init_ms = sum(ms for ms, _ in init_streams.values())
+    res = dict(wall_ms=wall_ms, trace_wall_ms=rep["wall_ms"], device_ms=rep["device_ms"],
+               busy_ms=rep["busy_ms"], overlap_ms=rep["device_ms"] - rep["busy_ms"],
+               idle_share=rep["idle_share"], episode_init_ms=init_ms,
+               init_streams={str(k): v for k, v in init_streams.items()},
+               step_streams={str(k): v for k, v in step_streams.items()},
+               init_window=window, top=rep["top_device"][:15])
+    log(f"profile of one config-5 pipelined step: trace {rep['wall_ms']:.1f} ms, device "
+        f"{rep['device_ms']:.1f} ms summed against {rep['busy_ms']:.1f} ms busy (the streams "
+        f"overlapped {res['overlap_ms']:.1f} ms), idle share {rep['idle_share']:.3f}; "
+        f"rovr/episode_init {init_ms:.1f} ms of device time on streams "
+        f"{res['init_streams']}, the step's own on {res['step_streams']}; the init's "
+        f"stream's window and the share of it in which the step's streams ran: {window}")
+    return res
+
+
+def phase_pipelined5(torch, conv, attention, rl, profiling, cfg5, video, org, out_dir,
+                     profile5=None):
+    """Config 5's double-buffered step, `rl.train_step_pipelined` (batch 8,
+    S = T = 64, the attention policy, phase 9's clips as float): a chain of
+    PIPE_CHAIN steps, each on the previous `next_init`, against as many
+    `train_step`s with the same generator (bit for bit, or a gap printed and
+    held at phase 28's bounds) and each `next_init` against `episode_init`,
+    with 192/150/20/20 K1-K4 launches a step; then the two arms interleaved
+    (plain `train_step`, whose rollout runs the init in line; the pipelined
+    step), PIPE_STEPS timed steps each after a warm-up: sec/step, frames/s,
+    peak memory, the bytes of one EpisodeInit; then one pipelined step under
+    utils.profiling.trace: device time summed against busy (their difference
+    is the time the two streams ran at once), the idle share, the init's
+    device time and streams (none of them the step's), and the share of the
+    init's window in which the step's streams ran."""
+    mods = rl.make_modules(cfg5, device="cuda")
+    state = rl.init_state(cfg5, mods, seed=0)
+    v, o = (x.float() * (1.0 / 255.0) for x in (video, org))
+    batches = [(torch.roll(v, i, 0), torch.roll(o, i, 0)) for i in range(PIPE_CHAIN + 1)]
+    del v, o
+    b, t = video.shape[0], cfg5.rl.time_steps
+
+    # a chain of pipelined steps against train_step + episode_init
+    section_s = {}
+    t_section = time.time()
+    g_plain, g_pipe = (torch.Generator(device="cuda").manual_seed(30) for _ in range(2))
+    init = rl.episode_init(state, mods, cfg5, *batches[0])
+    plain_state = pipe_state = state
+    chain = []
+    for i in range(PIPE_CHAIN):
+        want = rl.train_step(plain_state, mods, cfg5, *batches[i], generator=g_plain)
+        want_next = rl.episode_init(state, mods, cfg5, *batches[i + 1])
+        torch.cuda.synchronize()
+        _zero_counts(conv, attention)   # counts from here are the pipelined step's
+        got = rl.train_step_pipelined(pipe_state, mods, cfg5, init, *batches[i],
+                                      *batches[i + 1], generator=g_pipe)
+        torch.cuda.synchronize()
+        counts = _counts(conv, attention)
+        if counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"pipelined step {i} launched {counts}, "
+                                 f"expected {TRAIN_LAUNCHES}")
+        _finite_metrics(got[1])
+        bitwise, ok, gaps = _pipelined_against_plain(torch, rl, cfg5, got, want, want_next,
+                                                     i + 1)
+        chain.append(dict(step=i, bitwise=bitwise, ok=ok, gaps=gaps, launches=counts))
+        log(f"config-5 pipelined step {i} against train_step + episode_init: "
+            + ("bit for bit" if bitwise else f"NOT bit for bit, gaps {gaps}, phase 28's "
+               f"bounds {'held' if ok else 'FAILED'}") + f"; launches {counts}")
+        if not ok:
+            raise AssertionError(f"pipelined step {i} is off train_step: {gaps}")
+        plain_state, pipe_state, init = want[0], got[0], got[3]
+    init_bytes = sum(x.numel() * x.element_size() for x in profiling.tree_tensors(init))
+    taps_bytes = sum(x.numel() * x.element_size() for x in init.org_taps)
+    del want, got, want_next, plain_state, pipe_state
+    torch.cuda.empty_cache()
+    init = rl.episode_init(state, mods, cfg5, *batches[0])
+
+    section_s["chain"] = time.time() - t_section
+    t_section = time.time()
+
+    # the arms, interleaved
+    steps = _arm_steps(rl, mods, cfg5)
+    states = dict.fromkeys(steps, state)
+    inits = dict.fromkeys(steps, init)
+    gens = {a: torch.Generator(device="cuda").manual_seed(31) for a in steps}
+    times, host, peaks = ({a: [] for a in steps} for _ in range(3))
+    for i in range(1 + PIPE_STEPS):
+        cur, nxt = batches[i % 2], batches[(i + 1) % 2]
+        for arm, fn in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            held = 0 if arm == "plain" else sum(
+                x.numel() * x.element_size() for x in profiling.tree_tensors(inits[arm]))
+            t0 = time.time()
+            states[arm], inits[arm] = fn(states[arm], inits[arm], cur, nxt, gens[arm])
+            t1 = time.time()
+            torch.cuda.synchronize()
+            if i:
+                times[arm].append(time.time() - t0)
+                host[arm].append(t1 - t0)
+                peaks[arm].append((torch.cuda.max_memory_allocated(), start, held))
+    timing = {}
+    for arm in steps:
+        ts = sorted(times[arm])
+        peak, start, held = max(peaks[arm])
+        own = (peak - start + held) / 1e9
+        timing[arm] = dict(sec_each=times[arm], sec_per_step=_median(ts), sec_min=ts[0],
+                           sec_max=ts[-1], frames_per_sec=b * t / _median(ts),
+                           host_sec_per_step=_median(host[arm]),
+                           peak_gb=peak / 1e9, peak_above_start_gb=(peak - start) / 1e9,
+                           footprint_gb=own)
+        log(f"config-5 {arm} arm: {_median(ts):.4f} s/step (median of {len(ts)}, "
+            f"{ts[0]:.4f}-{ts[-1]:.4f}; the call returned after {_median(host[arm]):.4f} s), "
+            f"{b * t / _median(ts):.1f} frames/s, peak {peak / 1e9:.2f} GB, of it "
+            f"{(peak - start) / 1e9:.2f} GB above the step's start; the step's own "
+            f"{own:.2f} GB with the init it holds at its start")
+    ratio = timing["pipelined"]["sec_per_step"] / timing["plain"]["sec_per_step"]
+    log(f"config-5 pipelined / plain sec/step {ratio:.4f} (interleaved, one call); one "
+        f"EpisodeInit {init_bytes / 1e9:.3f} GB, its org taps {taps_bytes / 1e9:.3f} GB")
+    del states, inits
+    torch.cuda.empty_cache()
+
+    section_s["arms"] = time.time() - t_section
+    t_section = time.time()
+
+    # one pipelined step under the profiler (phase 11 profiles train_step)
+    prof = _profile_pipelined(torch, rl, profiling, steps["pipelined"], state, mods, cfg5,
+                              batches, out_dir)
+    phase11 = (profile5 or {}).get("idle_share")
+    log(f"(phase 11's train_step idle share: "
+        f"{'not measured here' if phase11 is None else f'{phase11:.3f}'})")
+    section_s["profile"] = time.time() - t_section
+    log(f"phase 30 sections (host seconds): {section_s}")
+    return dict(chain=chain, bitwise=all(c["bitwise"] for c in chain), timing=timing,
+                pipelined_over_plain=ratio, init_bytes=init_bytes, taps_bytes=taps_bytes,
+                profile=prof, section_s=section_s)
+
+
 def _grid_rank(_mesh, out_dir, grid, timing):
     """One process of `--grid DxM`: config 5's model-axis paths on the
     (D, M) NCCL mesh, against `train_step` on this card; each process
@@ -3446,6 +3704,9 @@ def main() -> int:
                 masks5, u8_5)
     torch.cuda.empty_cache()
     model_axis = timed(phase_model_axis, torch, conv, attention, rl, cfg5, video5, org5, masks5)
+    torch.cuda.empty_cache()
+    pipelined5 = timed(phase_pipelined5, torch, conv, attention, rl, profiling, cfg5, video5,
+                       org5, out_dir, profile5)
 
     # one row per kernel, launches from the config-5 train run (warm-up +
     # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
@@ -3537,6 +3798,7 @@ def main() -> int:
         row["launches_per_dp1_step"] = dp1["launches"][kid]
         row["launches_per_model_axis_step"] = {
             path: model_axis[path]["launches"][kid] for path in MODEL_AXIS_PATHS}
+        row["launches_per_pipelined_step"] = pipelined5["chain"][0]["launches"][kid]
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
                   ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
                   serving=serving,
@@ -3548,6 +3810,7 @@ def main() -> int:
                   train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, frame_tree=frame_tree,
                   folder_rl=folder_rl, convert=convert_res, blocks_moe=blocks_moe,
                   train5_moe=train5_moe, s2d=s2d, dp1=dp1, model_axis=model_axis,
+                  pipelined5=pipelined5,
                   phase_seconds=phase_s,
                   kernels=kernels, seconds=time.time() - t_start)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,7 +1,8 @@
 """The ROVR episode, the RL train step and its loop, PyTorch port of
 rovr_tpu/train/rl.py: the module zoo, its state, the episode init, the
-rollout, PPO with Adam, `train_step`, and `run`/`run_resilient` with
-checkpoints and metrics.
+rollout, PPO with Adam, `train_step`, the double-buffered
+`train_step_pipelined`, and `run`/`run_resilient` with checkpoints and
+metrics.
 
 The port covers both context policies (the canvas PolicyNet2 and the
 attention policy of config 5) with sequential targets, the sequential
@@ -12,7 +13,8 @@ target from the canvas and the ActionLSTM's history token; `ppo_policy1`
 also trains it and its critic by PPO). pi1's modules, parameters and Adam
 states exist only with `use_policy1`; the JAX state always carries them.
 pi1's work runs under torch.profiler ranges: `rovr/pi1_act` and
-`rovr/pi1_lstm` in each rollout step, `rovr/pi1_ppo` in the update.
+`rovr/pi1_lstm` in each rollout step, `rovr/pi1_ppo` in the update; the
+episode init under `rovr/episode_init`.
 
 State and modules are split as in the JAX package: `ROVRModules` holds the
 nn.Modules, `ROVRState` their parameters as state dicts (port layout, f32)
@@ -35,6 +37,7 @@ state is left as it was.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -59,6 +62,7 @@ from rovr_torch.ops.ppo import critic_loss, ppo_clip_actor_loss
 from rovr_torch.ops.rewards import normalized_advantage, rewards_to_go
 from rovr_torch.parallel import collectives
 from rovr_torch.parallel.mesh import Mesh, local_rows, shard_batch
+from rovr_torch.utils.profiling import tree_tensors
 
 Policy = Union[PolicyNet2, AttentionContextPolicy]
 
@@ -346,11 +350,12 @@ def state_to(state: ROVRState, device) -> ROVRState:
     return ROVRState(*[_tree_to(x, device) for x in state])
 
 
-def bind(mods: ROVRModules, state: ROVRState) -> None:
-    """Make each module use the state's tensors (no copy when they are on
-    the module's device already)."""
-    for name, mod in zip(ROVRModules._fields, mods):
-        params = getattr(state, _MODULE_STATE[name])
+def bind(mods: ROVRModules, state: ROVRState,
+         names: Tuple[str, ...] = ROVRModules._fields) -> None:
+    """Make each module of `names` use the state's tensors (no copy when
+    they are on the module's device already)."""
+    for name in names:
+        mod, params = getattr(mods, name), getattr(state, _MODULE_STATE[name])
         if mod is None or params is None:
             continue
         dev = next(mod.parameters()).device
@@ -389,13 +394,20 @@ def per_frame_lpips(mods: ROVRModules, lpips_params: Dict[str, torch.Tensor],
     return torch.cat(d).reshape(b, s)
 
 
+_INIT_MODULES = ("lpips", "vp")   # the frozen modules episode_init reads
+
+
+@torch.no_grad()
+@record_function("rovr/episode_init")
 def episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
                  video: torch.Tensor, org_video: torch.Tensor,
                  rewards: bool = True) -> EpisodeInit:
     """The per-frame LPIPS baseline and the cached original-frame taps
     (skipped without rewards), then the VideoProcessor state encode of
-    the frames resized to 224."""
-    bind(mods, state)
+    the frames resized to 224 (the JAX `episode_init_jit`). It reads only
+    the frozen modules, LPIPS and the VideoProcessor, and binds only those,
+    so it commutes with a PPO update of the same state."""
+    bind(mods, state, _INIT_MODULES)
     b, s = video.shape[:2]
     curr_loss = org_taps = None
     if rewards:
@@ -497,7 +509,8 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
         generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
 
     if init is None:
-        init = episode_init(state, mods, cfg, video, org_video, rewards)  # binds
+        init = episode_init(state, mods, cfg, video, org_video, rewards)  # binds its own
+        bind(mods, state, tuple(n for n in ROVRModules._fields if n not in _INIT_MODULES))
     else:
         bind(mods, state)
     cvs, fts = init.canvas, init.feats
@@ -821,6 +834,107 @@ def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
         metrics["Episode/exposure"] = context_exposure(
             hole, out.traj.target_idx, out.traj.actions, mesh)
     return state, metrics, out.reconstructed
+
+
+_PIPELINE_STREAMS: Dict[torch.device, Tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+
+
+def _pipeline_streams(dev: torch.device) -> Tuple[torch.cuda.Stream, torch.cuda.Stream]:
+    """(the pipelined step's own stream, the next init's stream) of `dev`,
+    made once. The step's runs at a higher priority than the init's (the
+    default, lowest): at the same priority the block scheduler queues the
+    rollout's small kernels behind every conv of the init."""
+    if dev not in _PIPELINE_STREAMS:
+        _PIPELINE_STREAMS[dev] = (torch.cuda.Stream(dev, priority=-1), torch.cuda.Stream(dev))
+    return _PIPELINE_STREAMS[dev]
+
+
+def _float_clip(x, dev: torch.device) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    if x.dtype == torch.uint8:
+        raise TypeError("train_step_pipelined takes float clips in [0, 1], as the JAX one "
+                        "does; train_step takes uint8 clips and divides them by 255")
+    return x.to(dev)
+
+
+def _enqueue_episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
+                          video: torch.Tensor, org_video: torch.Tensor):
+    """`episode_init` of a batch, on a CUDA device enqueued on the device's
+    init stream (`_pipeline_streams`) behind the work already on the
+    caller's stream. Returns (init, the event recorded after it; None on
+    the CPU, where it runs in line).
+
+    The clips are tied to the init's stream and the init's tensors to the
+    caller's (`record_stream`), so the caching allocator hands neither to
+    the other stream's work while it may still be read."""
+    if video.device.type != "cuda":
+        return episode_init(state, mods, cfg, video, org_video), None
+    consumer = torch.cuda.current_stream(video.device)
+    side = _pipeline_streams(video.device)[1]
+    side.wait_stream(consumer)
+    for x in (video, org_video):
+        x.record_stream(side)
+    with torch.cuda.stream(side):
+        init = episode_init(state, mods, cfg, video, org_video)
+        ready = torch.cuda.Event()
+        ready.record(side)
+    for t in tree_tensors(init):
+        t.record_stream(consumer)
+    return init, ready
+
+
+def train_step_pipelined(state: ROVRState, mods: ROVRModules, cfg: Config,
+                         init: EpisodeInit, video, org_video, next_video, next_org_video,
+                         generator: Optional[torch.Generator] = None,
+                         gumbel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         gumbel1: Optional[torch.Tensor] = None):
+    """The double-buffered RL step (the JAX `train_step_pipelined`): the
+    rollout of batch i from its precomputed `init`, then PPO, and batch
+    i+1's `episode_init`. Returns (state, metrics, reconstructed,
+    next_init); the state, metrics and reconstruction are `train_step`'s on
+    batch i with the same noise, and `next_init` is `episode_init` of batch
+    i+1 (it reads only the frozen LPIPS and VideoProcessor, which PPO does
+    not touch).
+
+    Clips (B, S, H, W, 3) are float in [0, 1]; uint8 raises TypeError (the
+    JAX function feeds whatever it is given to LPIPS). The noise is drawn
+    as `train_step` draws it: from `generator` (default: seeded from
+    cfg.run.seed), or given as `gumbel` = (rollout (T, B, S), PPO
+    (n_updates, B*T, S)) and, with cfg.rl.use_policy1, `gumbel1`. No mesh
+    and no masks, as in the JAX function.
+
+    On a CUDA device, from this one thread, the next init is enqueued
+    first on a stream of its own, then the rollout and PPO on a stream of
+    higher priority (`_pipeline_streams`), so the init's convs fill the
+    SMs that the rollout's small kernels leave idle. Both streams start
+    behind the caller's, and before returning the caller's stream waits on
+    both: what the step returns, `next_init` included (like one from
+    `episode_init`), is safe to read on the caller's stream. On the CPU it
+    all runs in line."""
+    dev = next(mods.local_net.parameters()).device
+    video, org_video, next_video, next_org_video = (
+        _float_clip(x, dev) for x in (video, org_video, next_video, next_org_video))
+    if gumbel is None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(cfg.run.seed)
+    g_roll, g_ppo = gumbel if gumbel is not None else (None, None)
+    next_init, ready = _enqueue_episode_init(state, mods, cfg, next_video, next_org_video)
+    cuda = dev.type == "cuda"
+    if cuda:
+        consumer = torch.cuda.current_stream(dev)
+        own = _pipeline_streams(dev)[0]
+        own.wait_stream(consumer)
+    with torch.cuda.stream(own) if cuda else contextlib.nullcontext():
+        out = rollout(state, mods, cfg, video, org_video, generator, True, g_roll, init=init,
+                      gumbel1=gumbel1)
+        new_state, ppo_metrics = ppo_update(state, mods, cfg, out.traj, generator, g_ppo)
+    metrics = dict(out.metrics)
+    metrics.update(ppo_metrics)
+    if cuda:
+        consumer.wait_stream(own)
+        consumer.wait_event(ready)
+        for t in tree_tensors((new_state, metrics, out.reconstructed)):
+            t.record_stream(consumer)
+    return new_state, metrics, out.reconstructed, next_init
 
 
 def make_sharded_train_step(mesh: Mesh, mods: ROVRModules, cfg: Config):

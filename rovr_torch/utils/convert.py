@@ -31,6 +31,10 @@ port flattens its conv trunk in the same NHWC order as the JAX package.
 two workloads' states (`PretrainState`, `ImitationState`) by the same
 rules: their trees hold the same modules.
 
+`episode_init_from_jax` carries a JAX `EpisodeInit` (the rollout's init:
+the LPIPS baseline, the org taps, the canvas and the features), so both
+packages' steps can start from the same init.
+
 RAFT-small's tree (`raft_params`, present only when the spatio signal is
 on) needs no rule of its own: its InstanceNorm `scale`/`bias` map as every
 norm's do, its block names (`layer1_0`, `conv_down`) are the port's module
@@ -47,7 +51,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from rovr_torch.train.rl import ROVRState, adam_init
+from rovr_torch.train.rl import EpisodeInit, ROVRState, adam_init
 
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
          "var": "running_var"}
@@ -126,6 +130,23 @@ def params_from_jax(jax_state: Any, device=None, policy1: bool = False) -> ROVRS
         opts[f"{f}_opt"] = opt if opt is not None else adam_init(params[f"{f}_params"])
     return ROVRState(**params, **opts, step=int(np.asarray(get("step", 0))))
 
+
+def episode_init_from_jax(jax_init: Any, dtype: torch.dtype = torch.bfloat16,
+                          device=None) -> EpisodeInit:
+    """JAX `EpisodeInit` (arrays, numpy or JAX) -> the port's, on `device`
+    (default: the CPU). The org taps map (B, S, h, w, c) -> (B, S, c, h, w)
+    in `dtype`, the LPIPS compute dtype (the port's taps are NCHW in it,
+    models/vgg_lpips.py); `curr_loss`, `canvas` and `feats` keep their
+    layouts, in f32."""
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device or "cpu", dt)
+
+    taps = jax_init.org_taps
+    return EpisodeInit(
+        curr_loss=None if jax_init.curr_loss is None else t(jax_init.curr_loss),
+        org_taps=None if taps is None else [
+            t(np.asarray(x, np.float32).transpose(0, 1, 4, 2, 3), dtype) for x in taps],
+        canvas=t(jax_init.canvas), feats=t(jax_init.feats))
 
 
 def pretrain_state_from_jax(jax_state: Any, device=None):

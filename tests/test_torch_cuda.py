@@ -541,3 +541,47 @@ def test_sharded_step_world_size_one_over_nccl(cuda):
         assert float(diff.max()) <= bound, field
         assert float((diff <= 1e-5).float().mean()) >= 0.99, field
     assert (got[2].float() - want[2].float()).abs().max().item() <= 1 / 255
+
+
+@pytest.mark.cuda
+def test_pipelined_step_on_the_card(cuda):
+    """`train_step_pipelined` at config 5's widths (batch 2, 8 frames) on
+    the card: the next batch's init on a stream of its own, the step on one
+    of higher priority, the step equal to `train_step` bit for bit (the streams change no arithmetic),
+    `next_init` equal to `episode_init`, and a uint8 clip refused."""
+    import dataclasses
+
+    from rovr_torch.config import config_rl_scaled
+    from rovr_torch.train import rl
+
+    c = config_rl_scaled(vid_length=8, data_parallel=1)
+    cfg = c.replace(rl=dataclasses.replace(c.rl, batch_size=2, n_updates_per_ppo=2))
+    mods = rl.make_modules(cfg, device="cuda")
+    state = rl.init_state(cfg, mods, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, w = cfg.data.frame_size
+    v0, o0, v1, o1 = (torch.rand(2, 8, h, w, 3, device="cuda", generator=gen)
+                      for _ in range(4))
+    want = rl.train_step(state, mods, cfg, v0, o0,
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    want_next = rl.episode_init(state, mods, cfg, v1, o1)
+    init = rl.episode_init(state, mods, cfg, v0, o0)
+    got = rl.train_step_pipelined(state, mods, cfg, init, v0, o0, v1, o1,
+                                  generator=torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    own, side = rl._pipeline_streams(torch.device("cuda", torch.cuda.current_device()))
+    assert len({own, side, torch.cuda.current_stream()}) == 3
+    assert own.priority < side.priority      # the step's kernels go first
+    assert set(got[1]) == set(want[1])
+    for k, v in want[1].items():
+        assert torch.equal(got[1][k], v), k
+    assert torch.equal(got[2], want[2])
+    for field in ("actor2_params", "critic2_params"):
+        a, b = getattr(got[0], field), getattr(want[0], field)
+        assert all(torch.equal(a[k], b[k]) for k in b), field
+    for name in ("curr_loss", "canvas", "feats"):
+        assert torch.equal(getattr(got[3], name), getattr(want_next, name)), name
+    assert all(torch.equal(a, b) for a, b in zip(got[3].org_taps, want_next.org_taps))
+    with pytest.raises(TypeError, match="train_step"):
+        rl.train_step_pipelined(state, mods, cfg, init, (v0 * 255).to(torch.uint8), o0,
+                                v1, o1)

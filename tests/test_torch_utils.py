@@ -50,6 +50,39 @@ def test_analyze_counts_overlapping_device_spans_once(tmp_path):
     assert r["top_device"][0] == ("k", pytest.approx(0.06), 2)
 
 
+def test_analyze_attributes_each_ranges_device_work_to_its_streams(tmp_path):
+    """A range's device work is what the launches on its host thread within
+    its span started (matched by correlation id), on whatever stream it
+    ran; the device's time is split by stream too, each stream with its
+    window and the share of it in which other streams ran."""
+    def launch(ts, corr, tid=1):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 9,
+                "tid": tid, "ts": ts, "dur": 2, "args": {"correlation": corr}}
+
+    def kernel(ts, dur, stream, corr):
+        return {"ph": "X", "cat": "kernel", "name": f"k{corr}", "pid": 0, "tid": stream,
+                "ts": ts, "dur": dur, "args": {"stream": stream, "correlation": corr}}
+
+    ev = [{"ph": "X", "cat": "user_annotation", "name": "rovr/episode_init", "pid": 9,
+           "tid": 1, "ts": 0, "dur": 10},
+          launch(1, 1), launch(5, 2), launch(12, 3), launch(6, 4, tid=2),
+          kernel(20, 30, 13, 1), kernel(50, 10, 13, 2), kernel(30, 40, 7, 3),
+          kernel(40, 5, 7, 4)]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": ev}))
+    r = profiling.analyze_trace(str(tmp_path))
+    assert r["range_streams"] == {"rovr/episode_init": {13: [pytest.approx(0.04), 2]}}
+    assert {k: v["ms"] for k, v in r["streams"].items()} == {
+        13: pytest.approx(0.04), 7: pytest.approx(0.045)}
+    # stream 13 spans [20, 60); stream 7 ran in [30, 60) of it
+    assert r["streams"][13]["window_ms"] == pytest.approx(0.04)
+    assert r["streams"][13]["others_busy_share"] == pytest.approx(0.75)
+    # stream 7 spans [30, 70); stream 13 ran in [30, 60) of it
+    assert r["streams"][7]["others_busy_share"] == pytest.approx(0.75)
+    assert r["device_ms"] == pytest.approx(0.085)
+    assert r["busy_ms"] == pytest.approx(0.05)        # [20, 70)
+    assert "device by stream" in profiling.format_trace_report(r)
+
+
 def test_step_timer_and_memory_stats():
     timer = profiling.StepTimer(skip_first=1)
     for _ in range(3):
