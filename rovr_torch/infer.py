@@ -33,6 +33,7 @@ from rovr_torch.config import Config
 from rovr_torch.parallel import collectives
 from rovr_torch.parallel.mesh import Mesh, local_batch_size, replicate, shard_batch
 from rovr_torch.train import rl
+from rovr_torch.utils.profiling import annotate
 
 
 def reconstruct_clips(
@@ -56,23 +57,28 @@ def reconstruct_clips(
             raise ValueError(f"modules on {device}, the mesh's device is {mesh.device}")
         state = replicate(mesh, state)
     for video in videos:
-        v = torch.as_tensor(video)
-        if mesh is None:
-            v = v.to(device)
-        else:
-            local_batch_size(mesh, v.shape[0])   # B must divide the mesh
-            v = shard_batch(mesh, v)
-        with torch.inference_mode():
-            if v.dtype == torch.uint8:
-                v = v.float() / 255.0
-            out = rl.rollout(state, mods, cfg, v, v, rewards=False, mesh=mesh)
-            recon_u8 = (out.reconstructed.float() * 255.0 + 0.5).clamp(0.0, 255.0)
-            recon_u8 = recon_u8.to(torch.uint8)
-            actions = out.traj.actions
-            if mesh is not None:
-                recon_u8 = collectives.all_gather(recon_u8, mesh, axis=0)
-                actions = collectives.all_gather(actions, mesh, axis=1)
-        yield recon_u8.cpu().numpy(), actions.cpu().numpy()
+        # the batch's span closes before the yield: the consumer's time is not the batch's
+        with annotate("rovr/serve/batch"):
+            with annotate("rovr/serve/h2d"):
+                v = torch.as_tensor(video)
+                if mesh is None:
+                    v = v.to(device)
+                else:
+                    local_batch_size(mesh, v.shape[0])   # B must divide the mesh
+                    v = shard_batch(mesh, v)
+                if v.dtype == torch.uint8:
+                    v = v.float() / 255.0
+            with torch.inference_mode():
+                out = rl.rollout(state, mods, cfg, v, v, rewards=False, mesh=mesh)
+                with annotate("rovr/serve/d2h"):
+                    recon_u8 = (out.reconstructed.float() * 255.0 + 0.5).clamp(0.0, 255.0)
+                    recon_u8 = recon_u8.to(torch.uint8)
+                    actions = out.traj.actions
+                    if mesh is not None:
+                        recon_u8 = collectives.all_gather(recon_u8, mesh, axis=0)
+                        actions = collectives.all_gather(actions, mesh, axis=1)
+                    frames, actions = recon_u8.cpu().numpy(), actions.cpu().numpy()
+        yield frames, actions
 
 
 def write_frames(recon: np.ndarray, out_dir: str, clip_offset: int = 0) -> int:

@@ -43,9 +43,9 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from rovr_torch.ops import cuda_build
+from rovr_torch.utils.profiling import annotate
 
 _SOURCE = "fused_conv3x3"
 
@@ -54,7 +54,7 @@ def fused_conv3x3_plain(x, kernel, bias, relu: bool = True):
     """The plain version: the sum of nine shifted (B*H*W, Cin) x (Cin, Cout)
     products in f32, then bias and ReLU in f32, cast back to x's dtype.
     The kernel is rounded to x's dtype first, as the TPU op casts it."""
-    with record_function("fused_conv3x3_plain"):  # a profiler trace shows its use
+    with annotate("fused_conv3x3_plain"):  # a profiler trace shows its use
         b, h, w, cin = x.shape
         cout = kernel.shape[-1]
         k = kernel.to(x.dtype).float()
@@ -78,7 +78,7 @@ def fused_conv3x3_backward(x, kernel, y, g, relu: bool = True):
     NHWC tensors viewed as channels-last NCHW (cuDNN on the card, f32
     accumulation): gx in x's dtype, gk in the kernel's dtype (HWIO); gb is
     the f32 sum of the masked g. Adds one to `fused_conv3x3.backward_calls`."""
-    with record_function("fused_conv3x3_backward"):
+    with annotate("fused_conv3x3_backward"):
         dt = x.dtype
         gm = g.to(dt)
         if relu:

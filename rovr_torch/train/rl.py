@@ -44,7 +44,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from rovr_torch.config import Config
 from rovr_torch.device import resolve
@@ -62,7 +61,7 @@ from rovr_torch.ops.ppo import critic_loss, ppo_clip_actor_loss
 from rovr_torch.ops.rewards import normalized_advantage, rewards_to_go
 from rovr_torch.parallel import collectives
 from rovr_torch.parallel.mesh import Mesh, local_rows, shard_batch
-from rovr_torch.utils.profiling import tree_tensors
+from rovr_torch.utils.profiling import annotate, tree_tensors
 
 Policy = Union[PolicyNet2, AttentionContextPolicy]
 
@@ -398,7 +397,7 @@ _INIT_MODULES = ("lpips", "vp")   # the frozen modules episode_init reads
 
 
 @torch.no_grad()
-@record_function("rovr/episode_init")
+@annotate("rovr/episode_init")
 def episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
                  video: torch.Tensor, org_video: torch.Tensor,
                  rewards: bool = True) -> EpisodeInit:
@@ -488,7 +487,7 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     use_spatio_reward also adds it to the last step's reward before the
     rewards-to-go.
     """
-    with collectives.global_batch(mesh):
+    with collectives.global_batch(mesh), annotate("rovr/rollout"):
         return _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel,
                         init, gumbel1)
 
@@ -528,7 +527,7 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
     for t in range(rl.time_steps):
         if policy1:
             ys["obs1"].append((cvs, token))
-            with record_function("rovr/pi1_act"):
+            with annotate("rovr/pi1_act"):
                 tgt, lp1 = mods.actor1.act(cvs, token,
                                            None if gumbel1 is None else gumbel1[t], generator)
             ys["logp1"].append(lp1)
@@ -537,37 +536,40 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
         obs = (fts,) if attention else (cvs, fts[ar, tgt])
         ys["obs"].append(obs)
         noise = None if (rl.greedy or gumbel is None) else gumbel[t]
-        acs, logp = _policy_act(mods, cfg, obs, tgt, noise, generator)
+        with annotate("rovr/rollout/policy"):
+            acs, logp = _policy_act(mods, cfg, obs, tgt, noise, generator)
 
-        frame_src = recon if rl.recon_context else video_cd
-        y_hat = mods.local_net(frame_src[ar, tgt], _gather_frames(frame_src, acs))
-
-        if rl.sequential_baseline:
-            seq_idx = torch.stack([(tgt - 2) % s, (tgt - 1) % s], dim=1)
-            exp_src = exp_video if rl.recon_context else video_cd
-            exp_hat = mods.local_net(exp_src[ar, tgt], _gather_frames(exp_src, seq_idx))
-            _write_frame(exp_video, tgt, exp_hat.to(exp_video.dtype))
+        with annotate("rovr/rollout/unet"):
+            frame_src = recon if rl.recon_context else video_cd
+            y_hat = mods.local_net(frame_src[ar, tgt], _gather_frames(frame_src, acs))
+            if rl.sequential_baseline:
+                seq_idx = torch.stack([(tgt - 2) % s, (tgt - 1) % s], dim=1)
+                exp_src = exp_video if rl.recon_context else video_cd
+                exp_hat = mods.local_net(exp_src[ar, tgt], _gather_frames(exp_src, seq_idx))
+                _write_frame(exp_video, tgt, exp_hat.to(exp_video.dtype))
 
         if rewards:
-            org_tgt = org_video[ar, tgt]
-            early = (mods.lpips.taps(org_tgt, limit=cache_from)
-                     if cache_from > 0 else [])
-            lpips_now = mods.lpips.distance_from_taps(
-                mods.lpips.taps(y_hat), early + [o[ar, tgt] for o in init.org_taps]
-            )
-            ys["marginal"].append(-(lpips_now - cl[ar, tgt]))
-            cl[ar, tgt] = lpips_now
-            ys["lpips"].append(lpips_now)
-            ys["mse"].append(((y_hat - org_tgt) ** 2).mean((1, 2, 3)))
+            with annotate("rovr/rollout/reward"):
+                org_tgt = org_video[ar, tgt]
+                early = (mods.lpips.taps(org_tgt, limit=cache_from)
+                         if cache_from > 0 else [])
+                lpips_now = mods.lpips.distance_from_taps(
+                    mods.lpips.taps(y_hat), early + [o[ar, tgt] for o in init.org_taps]
+                )
+                ys["marginal"].append(-(lpips_now - cl[ar, tgt]))
+                cl[ar, tgt] = lpips_now
+                ys["lpips"].append(lpips_now)
+                ys["mse"].append(((y_hat - org_tgt) ** 2).mean((1, 2, 3)))
 
-        _write_frame(recon, tgt, y_hat.to(recon.dtype))
-        cvs, new_feat = mods.vp.insert_encoded_frame_batch(tgt, y_hat, cvs)
-        if attention:
-            # keep the per-frame feature table in step with the written frame
-            # (JAX rl.py:628-633); out of place: ys holds the old table
-            fts = fts.index_put((ar, tgt), new_feat.to(fts.dtype))
+        with annotate("rovr/rollout/reencode"):
+            _write_frame(recon, tgt, y_hat.to(recon.dtype))
+            cvs, new_feat = mods.vp.insert_encoded_frame_batch(tgt, y_hat, cvs)
+            if attention:
+                # keep the per-frame feature table in step with the written frame
+                # (JAX rl.py:628-633); out of place: ys holds the old table
+                fts = fts.index_put((ar, tgt), new_feat.to(fts.dtype))
         if policy1:
-            with record_function("rovr/pi1_lstm"):
+            with annotate("rovr/pi1_lstm"):
                 chosen = torch.cat([tgt[:, None], acs], 1)
                 lstm_c, token = mods.lstm(lstm_c, chosen, mods.vp.extract_patch(chosen, cvs))
         ys["tgt"].append(tgt)
@@ -703,7 +705,7 @@ def ppo_update(state: ROVRState, mods: ROVRModules, cfg: Config,
     and every gradient is averaged over the ranks before its Adam step, so
     every rank's parameters and Adam states stay identical. The returned
     losses are this shard's."""
-    with collectives.global_batch(mesh):
+    with collectives.global_batch(mesh), annotate("rovr/ppo_update"):
         return _ppo_update(state, mods, cfg, traj, generator, gumbel, mesh)
 
 
@@ -749,7 +751,7 @@ def _ppo_update(state, mods, cfg, traj, generator, gumbel, mesh):
     )
     metrics = {"PPO/actor_loss": a_loss.detach(), "PPO/critic_loss": c_loss.detach()}
     if rl.use_policy1 and rl.ppo_policy1 and traj.obs1 is not None:
-        with record_function("rovr/pi1_ppo"):
+        with annotate("rovr/pi1_ppo"):
             state, m1 = _ppo_policy1(state, mods, cfg, traj, rtgs, generator, mesh)
         metrics.update(m1)
     return state, metrics
@@ -794,6 +796,7 @@ def _ppo_policy1(state: ROVRState, mods: ROVRModules, cfg: Config, traj: Traject
                    "PPO/critic1_loss": c_loss.detach()}
 
 
+@annotate("rovr/train_step")
 def train_step(state: ROVRState, mods: ROVRModules, cfg: Config,
                video: torch.Tensor, org_video: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -883,6 +886,7 @@ def _enqueue_episode_init(state: ROVRState, mods: ROVRModules, cfg: Config,
     return init, ready
 
 
+@annotate("rovr/train_step")
 def train_step_pipelined(state: ROVRState, mods: ROVRModules, cfg: Config,
                          init: EpisodeInit, video, org_video, next_video, next_org_video,
                          generator: Optional[torch.Generator] = None,

@@ -1,14 +1,22 @@
 """Tracing and profiling (rovr_tpu/utils/profiling.py, PyTorch port).
 
+`annotate(name)` is the program's span, a context manager or a decorator.
+With nothing watching it checks two flags and does nothing else. While a
+profiler runs it opens a `record_function` range, which lands on the
+profiler's clock beside the device's kernels. Inside
+`with recording() as spans:` it appends a `Span` to `spans` on the host's
+clock (`time.perf_counter_ns`), with the index of its parent and of its
+root, the outermost span open on its thread: one unit of work, such as a
+train step or a served batch.
+
 `trace(logdir)` profiles a region with torch.profiler (the host's ops, and
 the card's kernels and copies where CUDA is visible) and writes a Chrome
-trace, `<logdir>/trace.json`, that Perfetto or chrome://tracing opens;
-`annotate(name)` names a sub-region on its timeline. `analyze_trace` reads
-such a trace back: the device's busy time and idle share, its time by
-stream, its top kernels and the host's top ops, and the annotated ranges
-with the device work each launched. `StepTimer` times steps
-that end in a device synchronize. `device_memory_stats` reads the caching
-allocator's live bytes per card. `tree_tensors` walks a tree of tensors.
+trace, `<logdir>/trace.json`, that Perfetto or chrome://tracing opens.
+`analyze_trace` reads such a trace back: the device's busy time and idle
+share, its time by stream, its top kernels and the host's top ops, the
+annotated ranges with the device work each launched, and the device's idle
+gaps put down to the ranges open across them. `tree_tensors` walks a tree
+of tensors.
 """
 
 from __future__ import annotations
@@ -16,13 +24,17 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import dataclasses
+import functools
 import glob
 import json
 import os
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
@@ -52,9 +64,108 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-def annotate(name: str):
-    """A named sub-region inside a trace (a `record_function` range)."""
-    return record_function(name)
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One recorded span. `root` and `parent` index the recording's list:
+    a root's `root` is its own index and its `parent` None. Times are
+    `time.perf_counter_ns()`; `t1_ns` is None while the span is open."""
+
+    name: str
+    root: int
+    parent: Optional[int]
+    t0_ns: int
+    t1_ns: Optional[int] = None
+
+    @property
+    def ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e6
+
+
+class _Recording:
+    """The spans of one `recording()` block, with a stack of the open ones
+    per host thread, so that spans of other threads do not interleave."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self._stacks: Dict[int, List[int]] = {}
+        self._lock = threading.Lock()
+
+    def open(self, name: str) -> int:
+        t0 = time.perf_counter_ns()
+        stack = self._stacks.setdefault(threading.get_ident(), [])
+        with self._lock:
+            i = len(self.spans)
+            self.spans.append(Span(name, stack[0] if stack else i,
+                                   stack[-1] if stack else None, t0))
+        stack.append(i)
+        return i
+
+    def close(self, i: int) -> None:
+        self.spans[i].t1_ns = time.perf_counter_ns()
+        self._stacks[threading.get_ident()].remove(i)
+
+
+_RECORDING: Optional[_Recording] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every `annotate` span entered in the block, on every thread:
+    `with recording() as spans: step(...)`, then read `spans` (a list of
+    `Span`). Spans are kept in memory only."""
+    global _RECORDING
+    outer, _RECORDING = _RECORDING, _Recording()
+    try:
+        yield _RECORDING.spans
+    finally:
+        _RECORDING = outer
+
+
+class annotate:
+    """A span named `name`: `with annotate("rovr/rollout"): ...`, or
+    `@annotate("rovr/episode_init")` on a function. Off (no recording, no
+    profiler) it costs two flag reads; while a profiler runs it opens a
+    `record_function` range; inside `recording()` it appends a `Span`. It
+    closes when its body raises."""
+
+    _on = False   # set on an instance only when the span is watched
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = _RECORDING
+        if rec is None and not _autograd_profiler._is_profiler_enabled:
+            return self
+        self._on = True
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self._rec = rec
+        if rec is not None:
+            self._index = rec.open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if not self._on:
+            return False
+        self._on = False
+        if self._rec is not None:
+            self._rec.close(self._index)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 def tree_tensors(tree):
@@ -69,57 +180,51 @@ def tree_tensors(tree):
             yield from tree_tensors(v)
 
 
-class StepTimer:
-    """Wall-clock time of device steps, each ended by a device synchronize.
-
-    Usage:
-        timer = StepTimer()
-        with timer.step():
-            out = train_step(...)
-            timer.sync(out)
-        print(timer.summary())
-    """
-
-    def __init__(self, skip_first: int = 1):
-        self.times: List[float] = []
-        self.skip_first = skip_first
-
-    @contextlib.contextmanager
-    def step(self):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
-
-    def sync(self, tree) -> None:
-        """Wait for the devices that hold the tree's tensors (PyTorch returns
-        before a CUDA kernel finishes)."""
-        for dev in {t.device for t in tree_tensors(tree) if t.is_cuda}:
-            torch.cuda.synchronize(dev)
-
-    @property
-    def steady(self) -> List[float]:
-        return self.times[self.skip_first:] if len(self.times) > self.skip_first \
-            else self.times
-
-    def summary(self) -> Dict[str, float]:
-        ts = sorted(self.steady)
-        if not ts:
-            return {}
-        return {"steps": float(len(ts)), "mean_s": sum(ts) / len(ts),
-                "p50_s": ts[len(ts) // 2], "max_s": ts[-1]}
+def _union(spans) -> List[Tuple[float, float]]:
+    """The union of (start, end) spans as disjoint sorted spans."""
+    out: List[List[float]] = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
 
 
 def _union_ms(spans) -> float:
     """Length of the union of (start, end) spans, in ms (spans in us)."""
-    total, end = 0.0, None
-    for s, e in sorted(spans):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e3
+    return sum(e - s for s, e in _union(spans)) / 1e3
+
+
+NO_RANGE = "(no range)"
+
+
+def _idle_by_range(busy: List[Tuple[float, float]], ranges: List[dict]) -> Dict[str, float]:
+    """{range name: idle ms}: each gap between the device's busy spans goes
+    to the innermost `annotate` range open at the gap's middle on any host
+    thread (the one that started last), the rest to NO_RANGE. One sweep
+    over the ranges, which nest on each thread."""
+    ranges = sorted(ranges, key=lambda e: (e["ts"], -e["dur"]))
+    stacks: Dict[tuple, List[dict]] = collections.defaultdict(list)
+    out: Dict[str, float] = collections.Counter()
+    i = 0
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        mid = (a + b) / 2
+        while i < len(ranges) and ranges[i]["ts"] <= mid:
+            e = ranges[i]
+            st = stacks[(e.get("pid"), e.get("tid"))]
+            while st and st[-1]["ts"] + st[-1]["dur"] < e["ts"]:
+                st.pop()
+            st.append(e)
+            i += 1
+        best = None
+        for st in stacks.values():
+            while st and st[-1]["ts"] + st[-1]["dur"] < mid:
+                st.pop()
+            if st and (best is None or st[-1]["ts"] > best["ts"]):
+                best = st[-1]
+        out[best["name"] if best else NO_RANGE] += (b - a) / 1e3
+    return dict(out)
 
 
 def _stream_of(event: Dict[str, object]):
@@ -191,7 +296,10 @@ def analyze_trace(logdir: str, top: int = 25) -> Dict[str, object]:
       its last end, and the share of that window in which other streams
       ran work;
     - `range_streams`: {name: {stream: [ms, count]}}, the device work that
-      each range's ops launched (matched by correlation id), by stream.
+      each range's ops launched (matched by correlation id), by stream;
+    - `idle_by_range`: {name: idle ms}, each gap between the device's busy
+      spans put down to the innermost range open at its middle on any host
+      thread, the gaps outside every range to NO_RANGE.
 
     Annotation rows on the device timeline (a range's span) are left out of
     the device's time: they would count its kernels twice."""
@@ -218,7 +326,8 @@ def analyze_trace(logdir: str, top: int = 25) -> Dict[str, object]:
         elif e.get("cat") == "user_annotation":
             rng_ms[e["name"]] += e["dur"] / 1e3
             rng_n[e["name"]] += 1
-    busy = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    spans = _union((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy = sum(e - s for s, e in spans) / 1e3
     return {
         "trace": paths[-1], "wall_ms": wall_ms, "device_ms": sum(ms.values()),
         "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if dev else None,
@@ -227,33 +336,6 @@ def analyze_trace(logdir: str, top: int = 25) -> Dict[str, object]:
         "ranges": {k: (v, rng_n[k]) for k, v in rng_ms.items()},
         "streams": _streams(dev),
         "range_streams": _range_streams(events, dev),
+        "idle_by_range": _idle_by_range(
+            spans, [e for e in events if e.get("cat") == "user_annotation"]),
     }
-
-
-def format_trace_report(report: Dict[str, object]) -> str:
-    idle = report["idle_share"]
-    lines = [f"wall {report['wall_ms']:.3f} ms, device busy {report['busy_ms']:.3f} ms "
-             f"(kernels and copies summed {report['device_ms']:.3f} ms), idle share "
-             + ("not measured (no device work in the trace)" if idle is None
-                else f"{idle:.3f}")]
-    if report["streams"]:
-        lines.append("device by stream: " + ", ".join(
-            f"{k} {v['ms']:.3f} ms" for k, v in sorted(report["streams"].items(), key=str)))
-    for title, key in (("device", "top_device"), ("host ops", "top_host")):
-        if report[key]:
-            lines.append(f"top {title}:")
-            lines += [f"  {ms:9.3f} ms {cnt:6d}x  {name[:100]}" for name, ms, cnt in report[key]]
-    if report["ranges"]:
-        lines.append("annotated ranges (host):")
-        lines += [f"  {ms:9.3f} ms {cnt:6d}x  {name}"
-                  for name, (ms, cnt) in sorted(report["ranges"].items())]
-    return "\n".join(lines)
-
-
-def device_memory_stats() -> Dict[str, float]:
-    """GB allocated now on each visible card (the reference's CUDA memory
-    prints, test.py:66); an empty dict without CUDA."""
-    if not torch.cuda.is_available():
-        return {}
-    return {str(i): torch.cuda.memory_stats(i).get("allocated_bytes.all.current", 0) / 1e9
-            for i in range(torch.cuda.device_count())}

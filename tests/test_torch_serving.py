@@ -6,10 +6,12 @@ random init carried into the port by `params_from_jax`, the same uint8 clips.
 Serving must pick the same context frames and reconstruct within 1 uint8
 LSB (the wobble infer.py:47-49 allows for reduction order); the greedy
 rollout with rewards must give the same metrics and rewards-to-go (1e-4).
+The serving spans, recorded, close before each batch is handed over.
 """
 
 import dataclasses
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from rovr_torch import infer as tinfer
 from rovr_torch.config import from_dict
 from rovr_torch.data import synthetic as tsynthetic
 from rovr_torch.train import rl as trl
+from rovr_torch.utils import profiling
 from rovr_torch.utils.convert import params_from_jax
 
 B = 2
@@ -196,3 +199,38 @@ def test_lpips_cache_split_and_init_chunks_change_nothing(pair):
     for k in base:
         torch.testing.assert_close(split[k], base[k], atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(rtgs_split, rtgs, atol=1e-6, rtol=1e-6)
+
+
+def test_reconstruct_clips_spans_close_before_the_yield(pair):
+    """Each recorded batch is one rovr/serve/batch root over the copy in,
+    the rollout (the episode init inside it, no reward span) and the copy
+    out, with T policy, UNet and re-encode spans; the root closes before
+    the batch is handed over, so the consumer's sleep is not the batch's."""
+    u8 = np.clip(pair["corrupted"] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    t = pair["ct"].rl.time_steps
+    handed = []
+    with profiling.recording() as spans:
+        t0 = time.perf_counter_ns()
+        for _ in tinfer.reconstruct_clips(pair["ct"], pair["state_t"], pair["mods_t"],
+                                          [u8, u8]):
+            handed.append(time.perf_counter_ns())
+            # longer than a batch takes on this machine, however loaded
+            sleep_s = 3 * (handed[0] - t0) / 1e9 + 0.2
+            time.sleep(sleep_s)
+    roots = [i for i, s in enumerate(spans) if s.parent is None]
+    assert [spans[i].name for i in roots] == ["rovr/serve/batch"] * 2
+    for k, r in enumerate(roots):
+        got = {}
+        for s in spans:
+            if s.root == r and s.name.startswith("rovr/"):
+                key = (None if s.parent is None else spans[s.parent].name, s.name)
+                got[key] = got.get(key, 0) + 1
+        assert got == {(None, "rovr/serve/batch"): 1, ("rovr/serve/batch", "rovr/serve/h2d"): 1,
+                       ("rovr/serve/batch", "rovr/rollout"): 1,
+                       ("rovr/serve/batch", "rovr/serve/d2h"): 1,
+                       ("rovr/rollout", "rovr/episode_init"): 1,
+                       **{("rovr/rollout", f"rovr/rollout/{n}"): t
+                          for n in ("policy", "unet", "reencode")}}
+        assert spans[r].t1_ns <= handed[k]
+        assert spans[r].ms < sleep_s * 1e3
+    assert spans[roots[1]].t0_ns - spans[roots[0]].t1_ns >= sleep_s * 1e9

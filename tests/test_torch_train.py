@@ -12,7 +12,8 @@ Tolerances: metrics 1e-4 (f32 sums in another order); first-epoch
 gradients 1e-4 relative / 1e-6 absolute; updated parameters within 1e-5 on
 at least 99% of entries and everywhere within 2*lr*n_updates (Adam turns
 the sign of a near-zero gradient into a +-lr step); serving uint8 within
-1 LSB with equal actions.
+1 LSB with equal actions. The train step's spans, recorded, at both context
+policies.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _tiny_config
@@ -34,6 +36,7 @@ from rovr_torch.data import synthetic as tsynthetic
 from rovr_torch.ops import ppo as tppo
 from rovr_torch.ops import rewards as trewards
 from rovr_torch.train import rl as trl
+from rovr_torch.utils import profiling
 from rovr_torch.utils.convert import module_params_from_jax, params_from_jax
 
 B = 2
@@ -297,3 +300,45 @@ def test_first_epoch_gradients_match_jax_grad_attention():
 
 def test_train_step_matches_jax_attention():
     check_train_step("attention")
+
+
+# ---------------------------------------------------------------- spans
+
+
+def _spans_by_parent(spans):
+    """{(parent name or None, name): count} of the recorded spans whose name
+    starts with "rovr/"."""
+    out = {}
+    for s in spans:
+        if s.name.startswith("rovr/"):
+            key = (None if s.parent is None else spans[s.parent].name, s.name)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("policy", ["canvas", "attention"])
+def test_train_step_spans_and_outputs_with_the_recorder(policy):
+    """A recorded tiny train step holds one train_step root with the
+    rollout (the episode init inside it) and PPO under it, and T each of
+    the policy, UNet, reward and re-encode spans under the rollout; the
+    step's outputs are the same bits with the recorder on and off."""
+    _, ct = _configs(policy)
+    mods = trl.make_modules(ct, dtype=torch.float32, device="cpu")
+    state = trl.init_state(ct, mods, seed=0)
+    h, w = ct.data.frame_size
+    s, t = ct.rl.vid_length, ct.rl.time_steps
+    batch = [tsynthetic.synthetic_batch(20 + j, s, h, w) for j in range(B)]
+    video, org = (torch.from_numpy(np.stack([x[i] for x in batch])) for i in (0, 1))
+    off = trl.train_step(state, mods, ct, video, org)
+    with profiling.recording() as spans:
+        on = trl.train_step(state, mods, ct, video, org)
+    assert _spans_by_parent(spans) == {
+        (None, "rovr/train_step"): 1, ("rovr/train_step", "rovr/rollout"): 1,
+        ("rovr/rollout", "rovr/episode_init"): 1, ("rovr/train_step", "rovr/ppo_update"): 1,
+        **{("rovr/rollout", f"rovr/rollout/{k}"): t
+           for k in ("policy", "unet", "reward", "reencode")}}
+    assert {sp.root for sp in spans} == {0} and all(sp.t1_ns is not None for sp in spans)
+    a, b = list(profiling.tree_tensors(off)), list(profiling.tree_tensors(on))
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
