@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K4) against their plain versions on the card,
-and the CPU-side rules that choose and guard them.
+and the CPU-side rules that choose and guard them; the rollout's re-encode
+replayed from its CUDA graph against the eager method.
 
 The `cuda`-marked tests need an NVIDIA GPU and skip without one. This file
 imports only numpy, torch, pytest and rovr_torch, so it also runs on a
@@ -585,3 +586,76 @@ def test_pipelined_step_on_the_card(cuda):
     with pytest.raises(TypeError, match="train_step"):
         rl.train_step_pipelined(state, mods, cfg, init, (v0 * 255).to(torch.uint8), o0,
                                 v1, o1)
+
+
+def _frames(gen, b, size):
+    """(B, H, W, 3) frames laid out as the UNet hands them back (an NHWC
+    view of NCHW memory)."""
+    return torch.rand(b, 3, size, size, device="cuda", generator=gen).permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
+@pytest.mark.parametrize("canvas,per_row", [(256, 8), (160, 5)], ids=["config5", "Config"])
+def test_reencode_graph_matches_eager(cuda, canvas, per_row, mode):
+    """The rollout's re-encode (ResNet-50 over B = 8 frames of 256^2, bf16,
+    D = 1024) replayed from its CUDA graph equals the eager method bit for
+    bit over 3 steps that feed the canvas back; a returned canvas stays as
+    it was after the next replay; weights bound anew (as `rl.bind` binds
+    them) are captured anew, not replayed stale; no K1 launch is in it."""
+    from rovr_torch.models.layers import flax_init_state
+    from rovr_torch.models.video_processor import VideoProcessor
+
+    vp = VideoProcessor(canvas_size=canvas, tile=32, tiles_per_row=per_row,
+                        feature_dim=1024).cuda()
+    w_a = flax_init_state(vp, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # the BatchNorms' statistics off their construction values, and a second set
+    w_a = {k: v * (0.5 + torch.rand(v.shape, device="cuda", generator=gen))
+           if k.endswith(("running_var", "weight")) else v for k, v in w_a.items()}
+    w_b = {k: v * (1 + 0.1 * torch.rand(v.shape, device="cuda", generator=gen))
+           for k, v in w_a.items()}
+
+    def bind(w):
+        vp.load_state_dict(w, strict=True, assign=True)
+        vp.requires_grad_(False)
+
+    b, steps = 8, 3
+    frames = [_frames(gen, b, 256) for _ in range(steps + 1)]
+    idx = [torch.randint(0, per_row * per_row, (b,), device="cuda", generator=gen)
+           for _ in range(steps + 1)]
+    canvas0 = torch.rand(b, canvas, canvas, 1, device="cuda", generator=gen)
+    counts = VideoProcessor.insert_encoded_frame_batch
+    ctx = torch.no_grad if mode == "no_grad" else torch.inference_mode
+    bind(w_a)
+    k1 = tconv.fused_conv3x3.launches
+    before = counts.captures, counts.replays, counts.eager
+    with ctx():
+        got, kept, c = [], [], canvas0
+        for t in range(steps):
+            c, f = vp.insert_encoded_frame_batch(idx[t], frames[t], c)
+            got.append((c, f))
+            kept.append((c.clone(), f.clone()))
+        want, c = [], canvas0
+        for t in range(steps):
+            c, f = vp._insert_eager(idx[t], frames[t], c)
+            want.append((c, f))
+    torch.cuda.synchronize()
+    assert (counts.captures - before[0], counts.replays - before[1],
+            counts.eager - before[2]) == (1, steps - 1, 0)
+    for t in range(steps):
+        for g, k, w in zip(got[t], kept[t], want[t]):
+            assert torch.equal(g, k), f"step {t}'s output changed by a later replay"
+            assert torch.equal(g, w), f"step {t}: graph and eager differ"
+
+    bind(w_b)
+    with ctx():
+        c_b, f_b = vp.insert_encoded_frame_batch(idx[steps], frames[steps], got[-1][0])
+        c_e, f_e = vp._insert_eager(idx[steps], frames[steps], got[-1][0])
+        bind(w_a)
+        _, f_a = vp._insert_eager(idx[steps], frames[steps], got[-1][0])
+    torch.cuda.synchronize()
+    assert counts.captures - before[0] == 2 and counts.eager == before[2]
+    assert torch.equal(c_b, c_e) and torch.equal(f_b, f_e)
+    assert not torch.equal(f_b, f_a)
+    assert tconv.fused_conv3x3.launches == k1

@@ -220,8 +220,12 @@ def test_video_processor_canvas(vp_pair):
     np.testing.assert_allclose(feats_t.numpy(), np.asarray(feats_j), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("size", [256, 160])  # resize down and up to 224
-def test_insert_encoded_frame_batch(vp_pair, size):
+@pytest.mark.parametrize("size,grad", [  # resize down and up to 224
+    pytest.param(256, False, id="256"), pytest.param(160, False, id="160"),
+    pytest.param(256, True, id="256-grad")])
+def test_insert_encoded_frame_batch(vp_pair, size, grad):
+    """On the CPU, and with grad enabled (heads trained through it), the
+    call runs eagerly: `eager` counts it, no graph is captured or replayed."""
     jm, params, tm, _ = vp_pair
     frames = _rand(16, 2, size, size, 3, low=0, high=1)
     canvas = _rand(17, 2, 96, 96, 1)
@@ -229,10 +233,16 @@ def test_insert_encoded_frame_batch(vp_pair, size):
     cj, fj = jm.apply({"params": params}, jnp.asarray(idx), jnp.asarray(frames),
                       jnp.asarray(canvas),
                       method=jvp.VideoProcessor.insert_encoded_frame_batch)
-    with torch.no_grad():
+    counts = tvp.VideoProcessor.insert_encoded_frame_batch
+    before = counts.captures, counts.replays, counts.eager
+    with torch.set_grad_enabled(grad):
         ct, ft = tm.insert_encoded_frame_batch(
             torch.from_numpy(idx).long(), torch.from_numpy(frames),
             torch.from_numpy(canvas))
+    assert (counts.captures, counts.replays, counts.eager) == (
+        before[0], before[1], before[2] + 1)
+    assert ft.requires_grad == grad and not tm._graphs
+    ct, ft = ct.detach(), ft.detach()
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=1e-4, rtol=1e-4)
     assert not np.array_equal(ct.numpy(), canvas)
