@@ -45,15 +45,16 @@ def readings(c: dict, s: drive.Setup, seed: int, arm: str, device, detail=None) 
         feed = s.pool[:s.mix["setup_units"]]
         with check.full_f32() if arm == "control" else tf32():
             recs = check.reference_train(s.cfg_dict, s.weights, feed,
-                                         precision="fp8" if arm == "control" else "f32")
-        return check.compare_train(s.cfg_dict, s.weights, feed, recs, detail=detail)
+                                         precision="fp8" if arm == "control" else "f32",
+                                         ref=s.ref)
+        return check.compare_train(s.cfg_dict, s.weights, feed, recs, detail=detail, ref=s.ref)
     picked = list(range(s.mix["check_batches"]))
     with check.full_f32():
-        outs = [check.reference_serve(s.cfg_dict, s.weights, s.pool[k]["video"], "fp8")
+        outs = [check.reference_serve(s.cfg_dict, s.weights, s.pool[k]["video"], "fp8", s.ref)
                 for k in picked]
     batches = [{"input": s.pool[k]["video"], "frames": o["frames"], "pairs": o["pairs"]}
                for k, o in zip(picked, outs)]
-    return check.compare_serve(s.cfg_dict, s.weights, batches)
+    return check.compare_serve(s.cfg_dict, s.weights, batches, s.ref)
 
 
 @contextmanager
@@ -80,7 +81,8 @@ def main() -> int:
     args = ap.parse_args()
     c = drive.load_cell(args.workload)
     device = "cuda"
-    s = drive.Setup(c["config"]["config"], c["mix"], c["work"], device)
+    s = drive.Setup(c["config"]["config"], c["mix"], c["work"], device,
+                    ref=c["config"].get("reference", check.DEFAULT_REFERENCE))
     kind = c["mix"]["kind"]
     plan = [("sound", args.seeds), ("control", args.controls)]
     plan += [(f, args.faults) for f in (faults.TRAIN if kind == "train" else faults.SERVE)]

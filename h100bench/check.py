@@ -54,22 +54,44 @@ the reference follows the pairs greedily: `choice_gap`, the largest amount
 by which a followed pair's score lies below the reference's best pair,
 `choice_mean`, that amount's mean over every step and clip, and
 `frame_lsb`, the largest gap of an output byte.
+
+The reference is the module `reference/<name>.py` that the configuration
+file names under "reference" (`episode` where it names none). It gives
+`Ref` and `adam_state`, and may give: `POLICIES`, the policies the
+configuration trains (actor2 and critic2 where it gives none), whose
+parameters and Adam states are recorded and followed; `EXTRA_METRICS`,
+further program metrics a train record keeps, under their full names
+(`Episode/spatio`); `extra_numbers(steps)`, further numbers from each
+followed step's (program record, reference record), its `metrics` holding
+every metric the reference's rollout returned; `extra_flops(cfg, kind)`,
+the model FLOPs of a unit past those work.py counts. An extra number is
+judged as any other, by a limit in the cell's file.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 from typing import Dict, List, Optional
 
 import torch
 
-from reference.episode import Ref, adam_state
-
+DEFAULT_REFERENCE = "episode"
+DEFAULT_POLICIES = ("actor2", "critic2")
 TRAIN_NUMBERS = ("logp_gap", "logp_later", "frame_gap", "reward_gap", "target_gap",
                  "actor_loss_gap", "critic_loss_gap", "update_gap")
 SERVE_NUMBERS = ("choice_gap", "choice_mean", "frame_lsb")
-POLICIES = ("actor2", "critic2")
 SMALL_LEAF = 1e-3
+
+
+def reference(name: str = DEFAULT_REFERENCE):
+    """The reference module `reference/<name>.py`."""
+    return importlib.import_module(f"reference.{name}")
+
+
+def policies(ref: str = DEFAULT_REFERENCE) -> tuple:
+    """The policies a configuration with reference `ref` trains."""
+    return getattr(reference(ref), "POLICIES", DEFAULT_POLICIES)
 
 
 @contextlib.contextmanager
@@ -100,49 +122,51 @@ def _leaf_gaps(prog: Dict[str, float], ref: Dict[str, float], keep) -> Dict[str,
 def _ref_record(r: dict, p: dict) -> dict:
     return {"pairs": r["actions"], "logp": r["logp"], "recon": r["recon"],
             "targets": r["rtgs"].transpose(0, 1).reshape(-1),
-            "metrics": {"lpips_loss": r["metrics"]["lpips_loss"].item(),
-                        "mean_reward": r["metrics"]["mean_reward"].item(),
+            "metrics": {**{k: v.item() for k, v in r["metrics"].items()},
                         "actor_loss": p["actor_loss"].item(),
                         "critic_loss": p["critic_loss"].item()},
             "epoch_losses": p["epoch_losses"]}
 
 
 def reference_train(cfg: dict, weights: dict, feed: List[dict], follow=None,
-                    precision: str = "f32") -> List[dict]:
+                    precision: str = "f32", ref: str = DEFAULT_REFERENCE) -> List[dict]:
     """The reference's three steps as a record (`follow`: a record whose
     pairs it takes; None: it picks its own, as a program would)."""
-    ref = Ref(cfg, {k: dict(v) for k, v in weights.items()}, precision)
-    opt = {n: adam_state(weights[n]) for n in POLICIES}
+    R, names = reference(ref), policies(ref)
+    model = R.Ref(cfg, {k: dict(v) for k, v in weights.items()}, precision)
+    opt = {n: R.adam_state(weights[n]) for n in names}
     out = []
     for i, item in enumerate(feed):
         g_roll, g_ppo = item["gumbel"]
-        r = ref.rollout(_clip(item["video"]), _clip(item["org"]), g_roll,
-                        None if follow is None else follow[i]["pairs"])
-        p = ref.ppo(r, g_ppo, opt)
+        r = model.rollout(_clip(item["video"]), _clip(item["org"]), g_roll,
+                          None if follow is None else follow[i]["pairs"])
+        p = model.ppo(r, g_ppo, opt)
         opt = p["opt"]
-        ref.w.update(actor2=p["actor2"], critic2=p["critic2"])
+        model.w.update({n: p[n] for n in names})
         rec = _ref_record(r, p)
         if i == 0:
-            rec["moments"] = {n: dict(opt[n]["m"]) for n in POLICIES}
+            rec["moments"] = {n: dict(opt[n]["m"]) for n in names}
         out.append(rec)
-    out[-1]["params"] = {n: dict(ref.w[n]) for n in POLICIES}
+    out[-1]["params"] = {n: dict(model.w[n]) for n in names}
     return out
 
 
-def reference_window(cfg: dict, weights: dict, window: dict) -> dict:
+def reference_window(cfg: dict, weights: dict, window: dict,
+                     ref: str = DEFAULT_REFERENCE) -> dict:
     """The reference's step from the policies and Adam states as the
     program held them before its window's step (`window["before"]`), on
     that step's batch and noise, along its pairs."""
-    before = window["before"]
-    w = {**weights, **{n: dict(before[n]["params"]) for n in POLICIES}}
+    names, before = policies(ref), window["before"]
+    w = {**weights, **{n: dict(before[n]["params"]) for n in names}}
     opt = {n: {"step": before[n]["step"], "m": dict(before[n]["m"]), "v": dict(before[n]["v"])}
-           for n in POLICIES}
+           for n in names}
     item = window["item"]
     g_roll, g_ppo = item["gumbel"]
-    ref = Ref(cfg, w)
-    r = ref.rollout(_clip(item["video"]), _clip(item["org"]), g_roll, window["record"]["pairs"])
-    p = ref.ppo(r, g_ppo, opt)
-    return {**_ref_record(r, p), "params": {n: p[n] for n in POLICIES}}
+    model = reference(ref).Ref(cfg, w)
+    r = model.rollout(_clip(item["video"]), _clip(item["org"]), g_roll,
+                      window["record"]["pairs"])
+    p = model.ppo(r, g_ppo, opt)
+    return {**_ref_record(r, p), "params": {n: p[n] for n in names}}
 
 
 def _update_gap(w0: dict, prog: dict, ref: dict, keep) -> Dict[str, float]:
@@ -153,17 +177,18 @@ def _update_gap(w0: dict, prog: dict, ref: dict, keep) -> Dict[str, float]:
 
 
 def compare_train(cfg: dict, weights: dict, feed: List[dict], prog: List[dict],
-                  window: Optional[dict] = None, detail: Optional[dict] = None) -> dict:
-    """The numbers of a train record against the reference: `prog`, the
-    set-up's three steps; `window`, the window's recorded step
+                  window: Optional[dict] = None, detail: Optional[dict] = None,
+                  ref: str = DEFAULT_REFERENCE) -> dict:
+    """The numbers of a train record against the reference `ref`: `prog`,
+    the set-up's three steps; `window`, the window's recorded step
     {"before", "item", "record", "after"} (None: the three steps alone).
     `detail`, when given, gets each network's worst leaves and further
     readings that are not compared."""
     with full_f32():
-        ref = reference_train(cfg, weights, feed, follow=prog)
-        pairs = list(zip(prog, ref))
+        refs = reference_train(cfg, weights, feed, follow=prog, ref=ref)
+        pairs = list(zip(prog, refs))
         if window is not None:
-            ref_w = reference_window(cfg, weights, window)
+            ref_w = reference_window(cfg, weights, window, ref)
             pairs.append((window["record"], ref_w))
     fresh = [pairs[0]] + pairs[3:]          # the steps from equal policies
     n = {k: 0.0 for k in TRAIN_NUMBERS}
@@ -184,12 +209,12 @@ def compare_train(cfg: dict, weights: dict, feed: List[dict], prog: List[dict],
         pt, rt = p["targets"], r["targets"]
         n["target_gap"] = max(n["target_gap"], 1.0 if pt.shape != rt.shape else
                               _gap(pt, rt) / rt.abs().max().item())
-    for name in POLICIES:
-        rm = _norms(ref[0]["moments"][name])
+    for name in policies(ref):
+        rm = _norms(refs[0]["moments"][name])
         med = _median(rm.values())
         keep = [k for k, v in rm.items() if v >= SMALL_LEAF * med]
-        update = _update_gap(weights[name], prog[-1]["params"][name], ref[-1]["params"][name],
-                             keep)
+        update = _update_gap(weights[name], prog[-1]["params"][name],
+                             refs[-1]["params"][name], keep)
         n["update_gap"] = max(n["update_gap"], _median(update.values()))
         if window is not None:
             w0 = window["before"][name]["params"]
@@ -201,8 +226,11 @@ def compare_train(cfg: dict, weights: dict, feed: List[dict], prog: List[dict],
                 detail[f"{name}.moment"] = [max(moment, key=moment.get), max(moment.values())]
             detail[f"{name}.update"] = [max(update, key=update.get), max(update.values())]
             detail[f"{name}.left_out"] = sorted(set(rm) - set(keep))
+    extra = getattr(reference(ref), "extra_numbers", None)
+    if extra is not None:
+        n.update(extra(pairs))
     if detail is not None:
-        detail["last_epoch_losses"] = {k: [prog[0]["metrics"][k], ref[0]["metrics"][k]]
+        detail["last_epoch_losses"] = {k: [prog[0]["metrics"][k], refs[0]["metrics"][k]]
                                        for k in ("actor_loss", "critic_loss")}
         detail["epoch_losses"] = {"program": [p["epoch_losses"] for p, _ in fresh],
                                   "reference": [r["epoch_losses"] for _, r in fresh]}
@@ -219,10 +247,11 @@ def _median(values) -> float:
     return v[len(v) // 2]
 
 
-def reference_serve(cfg: dict, weights: dict, u8, precision: str = "f32") -> dict:
+def reference_serve(cfg: dict, weights: dict, u8, precision: str = "f32",
+                    ref: str = DEFAULT_REFERENCE) -> dict:
     """The reference serving one batch as a program would: greedy pairs and
     uint8 frames."""
-    r = Ref(cfg, weights, precision).rollout(_clip(u8))
+    r = reference(ref).Ref(cfg, weights, precision).rollout(_clip(u8))
     return {"frames": _to_u8(r["recon"]), "pairs": r["actions"]}
 
 
@@ -230,13 +259,15 @@ def _to_u8(x: torch.Tensor) -> torch.Tensor:
     return (x * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
 
 
-def compare_serve(cfg: dict, weights: dict, batches: List[dict]) -> dict:
+def compare_serve(cfg: dict, weights: dict, batches: List[dict],
+                  ref: str = DEFAULT_REFERENCE) -> dict:
     """The numbers of served batches {"input", "frames", "pairs"} (uint8
-    input, uint8 frames, pairs (T, B, 2)) against the reference."""
+    input, uint8 frames, pairs (T, B, 2)) against the reference `ref`."""
     n = {k: 0.0 for k in SERVE_NUMBERS}
+    model = reference(ref).Ref(cfg, weights)
     with full_f32():
         for b in batches:
-            r = Ref(cfg, weights).rollout(_clip(b["input"]), actions=b["pairs"])
+            r = model.rollout(_clip(b["input"]), actions=b["pairs"])
             n["choice_gap"] = max(n["choice_gap"], r["choice_gap"].max().item())
             n["choice_mean"] += r["choice_gap"].mean().item() / len(batches)
             diff = _to_u8(r["recon"]).int() - b["frames"].to(r["recon"].device).int()

@@ -4,7 +4,9 @@ a per-layer metric is read from its own file, found by the names in
 BENCHMARK.json:
 
 - configs/<config>.json: the configuration as it is run (`config`, the
-  program's config tree as a plain dict) with its source and assumptions;
+  program's config tree as a plain dict) with its source and assumptions,
+  and optionally `reference`, the name of its plain reference module under
+  reference/ (`episode` where it names none; see check.py);
 - traffic/<mix>.json: the mix (see traffic.py);
 - cells/<workload>.json: the work of one unit (work.py) and the limit of
   each number the check compares (check.py);
@@ -69,11 +71,16 @@ def reader(name: str):
 
 class Setup:
     """The program built for a configuration on a device: its config, its
-    modules (bf16 compute, as the configuration states) and, per seed, the
-    benchmark's weights, the program's state and the mix's pool."""
+    modules (bf16 compute, as the configuration states), its reference's
+    name, the policies it trains and the further metrics its record keeps
+    (check.py) and, per seed, the benchmark's weights, the program's state
+    and the mix's pool."""
 
-    def __init__(self, cfg_dict: dict, mix: dict, work: dict, device, dtype=None):
+    def __init__(self, cfg_dict: dict, mix: dict, work: dict, device, dtype=None,
+                 ref: str = check.DEFAULT_REFERENCE):
         self.cfg_dict, self.mix, self.work, self.device = cfg_dict, mix, work, device
+        self.ref, self.policies = ref, check.policies(ref)
+        self.extra_metrics = getattr(check.reference(ref), "EXTRA_METRICS", ())
         self.cfg = program.config(cfg_dict)
         self.mods = program.modules(self.cfg, device, dtype)
 
@@ -95,9 +102,10 @@ def recorded_step(s: Setup, st, item):
     return st, {"pairs": torch.stack([a for a, _ in pairs]),
                 "logp": torch.stack([lp for _, lp in pairs]),
                 "recon": recon.detach(),
-                "metrics": {k: metrics[f"{g}/{k}"].detach() for g, k in (
+                "metrics": {**{k: metrics[f"{g}/{k}"].detach() for g, k in (
                     ("Episode", "lpips_loss"), ("Episode", "mean_reward"),
                     ("PPO", "actor_loss"), ("PPO", "critic_loss"))},
+                    **{k: metrics[k].detach() for k in s.extra_metrics}},
                 "epoch_losses": {k: losses[k] for k in ("actor", "critic")},
                 "targets": losses["targets"][0].detach()}
 
@@ -113,12 +121,12 @@ def _copy(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in tree.items()}
 
 
-def policies(st) -> dict:
-    """A copy of the policies' parameters and Adam states in `st`."""
+def policies(st, names) -> dict:
+    """A copy of the parameters and Adam states of the policies `names` in `st`."""
     return {n: {"params": _copy(getattr(st, f"{n}_params")),
                 "step": getattr(st, f"{n}_opt")["step"],
                 "m": _copy(getattr(st, f"{n}_opt")["exp_avg"]),
-                "v": _copy(getattr(st, f"{n}_opt")["exp_avg_sq"])} for n in check.POLICIES}
+                "v": _copy(getattr(st, f"{n}_opt")["exp_avg_sq"])} for n in names}
 
 
 def train_records(s: Setup, st, units: int):
@@ -129,9 +137,9 @@ def train_records(s: Setup, st, units: int):
         st, rec = recorded_step(s, st, s.pool[i % len(s.pool)])
         rec = on_host(rec)
         if i == 0:
-            rec["moments"] = {n: dict(getattr(st, f"{n}_opt")["exp_avg"]) for n in check.POLICIES}
+            rec["moments"] = {n: dict(getattr(st, f"{n}_opt")["exp_avg"]) for n in s.policies}
         records.append(rec)
-    records[-1]["params"] = {n: dict(getattr(st, f"{n}_params")) for n in check.POLICIES}
+    records[-1]["params"] = {n: dict(getattr(st, f"{n}_params")) for n in s.policies}
     return st, records
 
 
@@ -201,7 +209,8 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device, start: fl
     `detail`: filled with a train check's further readings. Returns the
     result's fields, and every number the check read (`numbers`)."""
     mix, work = c["mix"], c["work"]
-    s = setup or Setup(c["config"]["config"], mix, work, device, dtype)
+    s = setup or Setup(c["config"]["config"], mix, work, device, dtype,
+                       c["config"].get("reference", check.DEFAULT_REFERENCE))
     st = s.seed(seed)
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -256,9 +265,9 @@ def _train(s: Setup, st, seed, seconds, traced, start) -> dict:
         nonlocal st
         item = s.pool[(n0 + done[0]) % len(s.pool)]
         if done[0] == k:
-            held.update(before=policies(st), item=item)
+            held.update(before=policies(st, s.policies), item=item)
             st, held["record"] = recorded_step(s, st, item)
-            held["after"] = {n: _copy(getattr(st, f"{n}_params")) for n in check.POLICIES}
+            held["after"] = {n: _copy(getattr(st, f"{n}_params")) for n in s.policies}
         else:
             st, _m, _r = program.train_step(st, s.mods, s.cfg, item["video"], item["org"],
                                             item["gumbel"])
@@ -280,10 +289,10 @@ def _train(s: Setup, st, seed, seconds, traced, start) -> dict:
         e2e["train_frames_per_s"] = done[0] * b * t / (time.perf_counter() - t0)
     _launch_check(s, before, done[0])
     window = dict(held, record=on_host(held["record"]))
-    feed3, cfg_dict, w = s.pool[:n0], s.cfg_dict, s.weights
+    feed3, cfg_dict, w, ref = s.pool[:n0], s.cfg_dict, s.weights, s.ref
     out = {"attempted": done[0], "failed": 0, "e2e": e2e, "ctx": ctx,
            "check": lambda detail=None: check.compare_train(cfg_dict, w, feed3, records, window,
-                                                            detail)}
+                                                            detail, ref)}
     if traced:
         out["breakdown"] = ctx.pop("breakdown")
     return out
@@ -329,9 +338,9 @@ def _serve(s: Setup, st, seed, seconds, traced, start) -> dict:
     dev = s.device
     batches_for_check = [{"input": s.pool[k]["video"], "frames": torch.from_numpy(kept[k][0]),
                           "pairs": torch.from_numpy(kept[k][1]).to(dev)} for k in picked]
-    cfg_dict, w = s.cfg_dict, s.weights
+    cfg_dict, w, ref = s.cfg_dict, s.weights, s.ref
     out = {"attempted": len(served), "failed": 0, "e2e": e2e, "ctx": ctx,
-           "check": lambda detail=None: check.compare_serve(cfg_dict, w, batches_for_check)}
+           "check": lambda detail=None: check.compare_serve(cfg_dict, w, batches_for_check, ref)}
     if traced:
         out["breakdown"] = ctx.pop("breakdown")
     return out

@@ -45,18 +45,26 @@ def modules(cfg, device, dtype=None) -> rl.ROVRModules:
     return rl.make_modules(cfg, dtype=dtype, device=device)
 
 
+# the modules every configuration builds, in the order their weights have
+# always been drawn: a configuration with more modules draws these alike
+FIRST_MODULES = ("vp", "lpips", "local_net", "actor2", "critic2")
+
+
 def module_dict(mods: rl.ROVRModules) -> Dict[str, torch.nn.Module]:
-    return {"vp": mods.vp, "lpips": mods.lpips, "local_net": mods.local_net,
-            "actor2": mods.actor2, "critic2": mods.critic2}
+    """Every module the port built (each field of `rl.ROVRModules` that is
+    not None): `FIRST_MODULES`, then the others in the tuple's field order."""
+    names = FIRST_MODULES + tuple(n for n in rl.ROVRModules._fields if n not in FIRST_MODULES)
+    return {n: getattr(mods, n) for n in names if getattr(mods, n) is not None}
 
 
 def state(weights: Dict[str, Dict[str, torch.Tensor]]) -> rl.ROVRState:
-    """The port's state holding the benchmark's weights and fresh Adam states."""
-    return rl.ROVRState(
-        vp_params=weights["vp"], actor2_params=weights["actor2"],
-        critic2_params=weights["critic2"], local_net_params=weights["local_net"],
-        lpips_params=weights["lpips"], step=0,
-        actor2_opt=rl.adam_init(weights["actor2"]), critic2_opt=rl.adam_init(weights["critic2"]))
+    """The port's state holding the benchmark's weights, each module's in
+    its field (`rl._MODULE_STATE`), and a fresh Adam state for each module
+    the state has an optimizer field for (`<module>_opt`): the policies
+    the configuration trains."""
+    opts = {f"{n}_opt": rl.adam_init(w) for n, w in weights.items()
+            if f"{n}_opt" in rl.ROVRState._fields}
+    return rl.ROVRState(**{rl._MODULE_STATE[n]: w for n, w in weights.items()}, **opts, step=0)
 
 
 def launches() -> Dict[str, int]:

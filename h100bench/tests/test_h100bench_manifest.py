@@ -95,6 +95,11 @@ def _imports(path):
             yield node.module
 
 
+def _relative_levels(path):
+    tree = ast.parse(open(path).read())
+    return [n.level for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level]
+
+
 def _sources(top):
     for d, _, files in os.walk(top):
         yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
@@ -107,9 +112,26 @@ def test_no_module_imports_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for path in _sources(os.path.join(BENCH, "reference")):
-        tops = {name.split(".")[0] for name in _imports(path)}
-        assert tops <= {"__future__", "math", "typing", "torch"}, (path, tops)
+    """Every file under reference/ is a module that imports torch, the
+    standard names below and its siblings there, and nothing else; the
+    reference a configuration file names is one of them."""
+    top = os.path.join(BENCH, "reference")
+    modules = set()
+    for d, dirs, files in os.walk(top):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            path = os.path.join(d, f)
+            rel = os.path.relpath(path, top)
+            assert f.endswith(".py"), path
+            modules.add(rel[:-3].replace(os.sep, "."))
+            tops = {name.split(".")[0] for name in _imports(path)}
+            assert tops <= {"__future__", "math", "typing", "torch"}, (path, tops)
+            # a relative import climbs no higher than reference/ itself
+            assert all(lvl <= rel.count(os.sep) + 1 for lvl in _relative_levels(path)), path
+    for conf in B["configs"]:
+        with open(os.path.join(ROOT, conf["file"])) as f:
+            named = json.load(f).get("reference", "episode")
+        assert named in modules, (conf["name"], named)
 
 
 def test_run_exits_nonzero_without_a_card():

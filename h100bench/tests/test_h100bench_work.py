@@ -23,17 +23,17 @@ def _cell(name):
     w = next(x for x in BENCH_JSON["workloads"] if x["name"] == name)
     conf = next(c for c in BENCH_JSON["configs"] if c["name"] == w["config"])
     with open(os.path.join(ROOT, conf["file"])) as f:
-        cfg = json.load(f)["config"]
+        conf_file = json.load(f)
     with open(os.path.join(BENCH, "traffic", f"{w['traffic']}.json")) as f:
         kind = json.load(f)["kind"]
     with open(os.path.join(BENCH, "cells", f"{name}.json")) as f:
-        return cfg, kind, json.load(f)
+        return conf_file, kind, json.load(f)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_stored_work_equals_a_fresh_count(name):
-    cfg, kind, stored = _cell(name)
-    fresh = work.unit(cfg, kind)
+    conf_file, kind, stored = _cell(name)
+    fresh = work.unit(conf_file["config"], kind, conf_file.get("reference", "episode"))
     assert {k: stored[k] for k in fresh} == fresh
 
 

@@ -19,8 +19,6 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-MODULES = ("vp", "lpips", "local_net", "actor2", "critic2")
-
 
 def _rule(m: nn.Module, name: str, shape: Tuple[int, ...]):
     """("normal", std) | ("uniform", hi) | ("const", value) for one leaf."""

@@ -5,7 +5,9 @@
   the benchmark's own reference (reference/) on the meta device: convs,
   transposed convs and matrix products, forward and, for PPO, backward.
   Work that a program repeats for its own reasons is counted once: the
-  rollout's LPIPS reads the original frame's taps from the init.
+  rollout's LPIPS reads the original frame's taps from the init. A
+  configuration's reference module adds the work of what it brings past
+  the five modules (`extra_flops`, check.py).
 - `k1_bound_ms`: the least time of the UNet's conv3, conv4 and conv5 (the
   convs the port runs through its kernel K1) over the unit's UNet calls.
 - `attn_bound_ms`: the least time of the unit's attention calls (K2 forward,
@@ -25,6 +27,7 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+import check
 from reference import model as M
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16
@@ -165,8 +168,9 @@ def _count(fn) -> float:
     return float(counter.get_total_flops())
 
 
-def flops(cfg: dict, kind: str) -> float:
-    """Model FLOPs of one unit ("train" step or "serve" batch)."""
+def flops(cfg: dict, kind: str, ref: str = check.DEFAULT_REFERENCE) -> float:
+    """Model FLOPs of one unit ("train" step or "serve" batch) of a
+    configuration whose reference module is `ref`."""
     m, rl = cfg["model"], cfg["rl"]
     W = _meta_params(cfg)
     P = M.Precision("f32")
@@ -212,6 +216,9 @@ def flops(cfg: dict, kind: str) -> float:
             torch.autograd.grad(lc, list(pc.values()), allow_unused=True)
 
         total += rl["n_updates_per_ppo"] * _count(epoch)
+    extra = getattr(check.reference(ref), "extra_flops", None)
+    if extra is not None:
+        total += extra(cfg, kind)
     return total
 
 
@@ -225,11 +232,11 @@ def unet_k1_bound_ms(cfg: dict) -> float:
     return sum(conv_bound(b, hh, ww, ci, co)[0] for hh, ww, ci, co in shapes)
 
 
-def unit(cfg: dict, kind: str) -> dict:
+def unit(cfg: dict, kind: str, ref: str = check.DEFAULT_REFERENCE) -> dict:
     """The cell file's numbers for one unit of `kind` ("train" / "serve")."""
     m, rl = cfg["model"], cfg["rl"]
     b, T, s = rl["batch_size"], rl["time_steps"], rl["vid_length"]
-    out = {"flops": flops(cfg, kind), "k1_bound_ms": T * unet_k1_bound_ms(cfg),
+    out = {"flops": flops(cfg, kind, ref), "k1_bound_ms": T * unet_k1_bound_ms(cfg),
            "launches": {"K1": 3 * T, "K2": 0, "K3": 0, "K4": 0}}
     if rl["context_policy"] == "attention":
         depth, heads = m["attn_depth"], m["attn_heads"]
