@@ -26,6 +26,15 @@ Parameter names follow the flax tree (`fnet`, `cnet`, `update.motion`,
 `update.gru`, `update.flow_head`), so `utils.convert` carries JAX weights
 over by its rule; the update cell's parameters live once under `update`,
 shared by every iteration.
+
+Spans (`utils.profiling.annotate`), one of each per RAFT call:
+`rovr/raft/encode` (the feature encoder over both frames, the context
+encoder and the hidden/context split), `rovr/raft/corr`
+(`correlation_pyramid`) and `rovr/raft/update` (all `iters` refinement
+iterations: lookups, motion encoder, GRU, flow head). Counters on
+`pairwise_flows`: `pairwise_flows.pairs`, the frame pairs it has sent
+through RAFT, and `pairwise_flows.calls`, the RAFT calls (chunks) it has
+made; both count on the host from shapes alone.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from torch import nn
 
 from rovr_torch.models.layers import Conv2d, reference_tensor
 from rovr_torch.models.video_processor import resize_bilinear
+from rovr_torch.utils.profiling import annotate
 
 NUM_LEVELS = 4
 RADIUS = 3
@@ -271,23 +281,26 @@ class RAFTSmall(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = image1.shape
-        x1 = (2.0 * image1 - 1.0).permute(0, 3, 1, 2)
-        x2 = (2.0 * image2 - 1.0).permute(0, 3, 1, 2)
-        fmaps = self.fnet(torch.cat([x1, x2], dim=0)).permute(0, 2, 3, 1)
-        fmap1, fmap2 = fmaps[:b], fmaps[b:]
-        cmap = self.cnet(x1)
-        hidden = torch.tanh(cmap[:, :HIDDEN_DIM].float())
-        context = torch.relu(cmap[:, HIDDEN_DIM:]).float()
+        with annotate("rovr/raft/encode"):
+            x1 = (2.0 * image1 - 1.0).permute(0, 3, 1, 2)
+            x2 = (2.0 * image2 - 1.0).permute(0, 3, 1, 2)
+            fmaps = self.fnet(torch.cat([x1, x2], dim=0)).permute(0, 2, 3, 1)
+            fmap1, fmap2 = fmaps[:b], fmaps[b:]
+            cmap = self.cnet(x1)
+            hidden = torch.tanh(cmap[:, :HIDDEN_DIM].float())
+            context = torch.relu(cmap[:, HIDDEN_DIM:]).float()
 
-        pyramid = correlation_pyramid(fmap1, fmap2)
+        with annotate("rovr/raft/corr"):
+            pyramid = correlation_pyramid(fmap1, fmap2)
         h8, w8 = fmap1.shape[1], fmap1.shape[2]
         gy, gx = torch.meshgrid(
             torch.arange(h8, dtype=torch.float32, device=image1.device),
             torch.arange(w8, dtype=torch.float32, device=image1.device), indexing="ij")
         coords0 = torch.stack([gx, gy], dim=-1)[None].expand(b, h8, w8, 2)
         coords1 = coords0
-        for _ in range(self.iters):
-            hidden, coords1 = self.update(hidden, coords1, coords0, context, pyramid)
+        with annotate("rovr/raft/update"):
+            for _ in range(self.iters):
+                hidden, coords1 = self.update(hidden, coords1, coords0, context, pyramid)
         flow8 = coords1 - coords0   # the last refinement
         return resize_bilinear(flow8, (h, w)) * 8.0
 
@@ -296,16 +309,23 @@ def pairwise_flows(raft: RAFTSmall, video: torch.Tensor, size: int = 256,
                    chunk: Optional[int] = PAIR_CHUNK) -> torch.Tensor:
     """Flows between consecutive frames of (B, S, H, W, 3) -> (B, S-1, size,
     size, 2), the frames resized to size x size first. The B*(S-1) pairs run
-    `chunk` at a time (None: all at once)."""
+    `chunk` at a time (None: all at once); each call adds them to
+    `pairwise_flows.pairs` and its RAFT calls to `pairwise_flows.calls`."""
     b, s = video.shape[:2]
     small = resize_bilinear(video.reshape((b * s,) + tuple(video.shape[2:])).float(),
                             (size, size)).reshape(b, s, size, size, 3)
     f1 = small[:, :-1].reshape(b * (s - 1), size, size, 3)
     f2 = small[:, 1:].reshape(b * (s - 1), size, size, 3)
     step = chunk or f1.shape[0]
-    flows = torch.cat([raft(f1[i:i + step], f2[i:i + step])
-                       for i in range(0, f1.shape[0], step)])
+    starts = range(0, f1.shape[0], step)
+    pairwise_flows.pairs += f1.shape[0]
+    pairwise_flows.calls += len(starts)
+    flows = torch.cat([raft(f1[i:i + step], f2[i:i + step]) for i in starts])
     return flows.reshape(b, s - 1, size, size, 2)
+
+
+pairwise_flows.pairs = 0
+pairwise_flows.calls = 0
 
 
 def total_flow_magnitude(flows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

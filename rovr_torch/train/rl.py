@@ -483,8 +483,11 @@ def rollout(state: ROVRState, mods: ROVRModules, cfg: Config,
     contexts (t-2, t-1) mod S, in that stack order, gathered from the
     corrupted video (from its own reconstruction with recon_context), into
     `experimental`; it never feeds the rewards. cfg.rl.log_spatio adds the
-    RAFT flow recovery of the reconstruction, `Episode/spatio`;
-    use_spatio_reward also adds it to the last step's reward before the
+    RAFT flow recovery of the reconstruction, `Episode/spatio`, and the
+    mean over the clips of the total flow magnitude of the reconstruction,
+    the original and the corrupted clip it is taken from,
+    `Episode/phi_recon`, `Episode/phi_org`, `Episode/phi_corrupted`;
+    use_spatio_reward also adds spatio to the last step's reward before the
     rewards-to-go.
     """
     with collectives.global_batch(mesh), annotate("rovr/rollout"):
@@ -583,7 +586,8 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
         marginal = torch.stack(ys["marginal"])  # (T, B)
         spatio = None
         if rl.use_spatio_reward or rl.log_spatio:
-            spatio = _spatio(state, mods, cfg, recon, org_video, video)  # (B,)
+            with annotate("rovr/rollout/spatio"):
+                spatio, phis = _spatio(state, mods, cfg, recon, org_video, video)  # (B,)
             if rl.use_spatio_reward:
                 marginal[-1] += spatio
         rtgs = rewards_to_go(marginal, rl.gamma)
@@ -598,6 +602,7 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
         }
         if spatio is not None:
             metrics["Episode/spatio"] = spatio.mean()
+            metrics.update({f"Episode/phi_{k}": v.mean() for k, v in phis.items()})
     traj = Trajectory(
         obs=tuple(torch.stack(x) for x in zip(*ys["obs"])),
         target_idx=target_idx, actions=torch.stack(ys["acs"]),
@@ -610,9 +615,11 @@ def _rollout(state, mods, cfg, video, org_video, generator, rewards, gumbel, ini
 
 
 def _spatio(state: ROVRState, mods: ROVRModules, cfg: Config, recon: torch.Tensor,
-            org_video: torch.Tensor, video: torch.Tensor) -> torch.Tensor:
+            org_video: torch.Tensor, video: torch.Tensor):
     """The spatio signal (B,): RAFT flow recovery of the reconstruction
-    toward the original, relative to the corrupted clip, times spatio_scale."""
+    toward the original, relative to the corrupted clip, times spatio_scale;
+    and the total flow magnitudes (B,) it is taken from, under `recon`,
+    `org` and `corrupted`."""
     if mods.raft is None or state.raft_params is None:
         raise ValueError("cfg.rl.use_spatio_reward/log_spatio need make_modules and "
                          "init_state built with the same cfg (mods.raft, raft_params)")
@@ -621,7 +628,8 @@ def _spatio(state: ROVRState, mods: ROVRModules, cfg: Config, recon: torch.Tenso
     def phi(v):
         return total_flow_magnitude(pairwise_flows(mods.raft, v, size))[0]
 
-    return spatio_reward(phi(recon), phi(org_video), phi(video), cfg.rl.spatio_scale)
+    phis = {"recon": phi(recon), "org": phi(org_video), "corrupted": phi(video)}
+    return spatio_reward(phis["recon"], phis["org"], phis["corrupted"], cfg.rl.spatio_scale), phis
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:

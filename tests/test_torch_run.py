@@ -9,7 +9,10 @@ seeds its own; a checkpoint restores bit for bit; a resumed run continues
 metrics.jsonl holds the JAX package's record keys with finite values.
 The spatio step (`log_spatio` and `use_spatio_reward`) replays the JAX
 Gumbel draws and holds every metric, `Episode/spatio` among them, within
-1e-4 of the JAX train step on the same weights.
+1e-4 of the JAX train step on the same weights; the flow magnitudes the
+port logs beside spatio (`Episode/phi_*`) are held within 1e-4 of the JAX
+package's RAFT over its own reconstruction, the original and the
+corrupted clip.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ import torch
 
 from __graft_entry__ import _tiny_config
 from conftest import tiny_model_overrides
+from rovr_tpu.models import raft as jraft
 from rovr_tpu.train import rl as jrl
 from rovr_torch.config import from_dict
 from rovr_torch.data import synthetic as tsynthetic
@@ -189,15 +193,24 @@ def test_spatio_train_step_matches_jax(tmp_path):
         roll.append(np.asarray(jax.random.gumbel(k2, (B, s), jnp.float32)))
     ppo = [np.asarray(jax.random.gumbel(k, (B * t, s), jnp.float32))
            for k in jax.random.split(k_ppo, n)]
-    _, metrics_j, _ = jrl.train_step(state_j, mods_j, cj, jnp.asarray(v), jnp.asarray(o), rng)
+    _, metrics_j, recon_j = jrl.train_step(state_j, mods_j, cj, jnp.asarray(v), jnp.asarray(o),
+                                           rng)
     _, metrics_t, _ = trl.train_step(state_t, mods_t, ct, torch.from_numpy(v),
                                      torch.from_numpy(o), gumbel=(
                                          torch.from_numpy(np.stack(roll)),
                                          torch.from_numpy(np.stack(ppo))))
-    assert "Episode/spatio" in metrics_j and set(metrics_t) == set(metrics_j)
+    phis = {"recon": recon_j, "org": jnp.asarray(o), "corrupted": jnp.asarray(v)}
+    assert "Episode/spatio" in metrics_j and \
+        set(metrics_t) == set(metrics_j) | {f"Episode/phi_{k}" for k in phis}
     for k in metrics_j:
         np.testing.assert_allclose(float(metrics_t[k]), float(metrics_j[k]), rtol=1e-4,
                                    atol=1e-4, err_msg=k)
+    for k, clip in phis.items():
+        flows = jraft.pairwise_flows(mods_j.raft, state_j.raft_params, clip,
+                                     size=jrl.resolved_flow_size(cj))
+        np.testing.assert_allclose(float(metrics_t[f"Episode/phi_{k}"]),
+                                   float(jraft.total_flow_magnitude(flows)[0].mean()),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
     no_raft = trl.make_modules(ct.replace(rl=dataclasses.replace(
         ct.rl, log_spatio=False, use_spatio_reward=False)), device="cpu")
     with pytest.raises(ValueError, match="raft"):
