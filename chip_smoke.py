@@ -42,7 +42,10 @@ read just after. Phases:
      for K3+K4; a yardstick the port never calls), the layout copies the
      policy makes around K2 (q, k, v in, O out) and around K3 and K4 (dO
      in, dq, dk, dv out), and at the rollout shape the host's microseconds
-     per forward call;
+     per forward call; RAFT's correlation lookup kernel (ops/corr.py) vs the
+     plain lookup at its main shape (128 pairs, 32 x 32 positions, levels
+     32/16/8/4), bf16 and f32 out, its times beside the bound and the plain
+     version's;
   4. one full-width UNet call, kernel vs plain;
   5. serving at Config() widths: ResNet-50, UNet 64-512, PolicyNet2 on a
      160^2 canvas, 256^2 frames, S = T = 20, batch 8, random init from a
@@ -73,7 +76,8 @@ read just after. Phases:
      checkpoint's bytes, save time on the training thread against the
      background write, peak memory;
  13. one config-5 train step with the RAFT spatio signal (`log_spatio`):
-     the same launch counts, a finite Episode/spatio; RAFT's time within it;
+     the same launch counts, a finite Episode/spatio, 12 lookup launches a
+     RAFT call (144 a step); RAFT's time within it;
  14. evaluation at config 5 on the same clips: one `evaluate.run` batch
      (flow size 256; exactly 384 K1 and 128 K2, no K3 or K4) and one
      `run_ci` batch with 2 draws (576 K1, 256 K2); every metric finite, the
@@ -273,6 +277,8 @@ TRAIN_STEPS = 3    # timed config-5 train steps after one warm-up
 RUN_ITERS = 3      # rl.run iterations at config 5
 FLOW_SIZE = 256    # RAFT's input size in the config-5 evaluation
 TRAIN_LAUNCHES = {"K1": 192, "K2": 150, "K3": 20, "K4": 20}  # per config-5 step
+CORR_SHAPE = (128, 32, 32)   # RAFT's lookup: a chunk of 128 pairs at 256^2 / 8
+CORR_TOL = 1e-5    # x max|plain|, f32 out: FMA contraction and sum order only
 
 
 def log(msg: str) -> None:
@@ -425,6 +431,67 @@ def phase_k1(torch, conv, F):
             f"({bound_by})")
 
     return rows, max_err
+
+
+def corr_bound(b, h, w):
+    """Least time (ms) of one lookup call: the coordinates, an 8 x 8 window of
+    each of the 4 levels per position in f32 and the bf16 output, each moved
+    once over HBM."""
+    n = b * h * w
+    nbytes = n * (2 * 4 + 4 * 64 * 4 + 196 * 2)
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def phase_corr_lookup(torch, corr, raft):
+    """RAFT's correlation lookup kernel against the plain lookup at RAFT's
+    main shape, bf16 and f32 out; times beside the bound."""
+    b, h, w = CORR_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f1, f2 = (torch.randn(b, h, w, 128, device="cuda", generator=gen).bfloat16()
+              for _ in range(2))
+    pyramid = raft.correlation_pyramid(f1, f2)
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device="cuda"),
+                            torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij")
+    coords = (torch.stack([gx, gy], dim=-1)[None]
+              + 4.0 * torch.randn(b, h, w, 2, device="cuda", generator=gen))
+    res = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        got = corr.corr_lookup(pyramid, coords, dt).float()
+        ref = corr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2)
+        want = ref.to(dt).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_f32 = (got - ref).abs().max().item()
+        unequal = int((got != want).sum())
+        scale = ref.abs().max().item()
+        limit = CORR_TOL * scale if dt == torch.float32 else 2.0 ** -8 * scale
+        log(f"corr_lookup {name}: max|kernel-plain cast| {err:.4g} ({unequal} of "
+            f"{got.numel()} values unequal; limit {limit:.4g}), max|kernel-plain f32| "
+            f"{err_f32:.4g}")
+        if err > limit:
+            raise AssertionError(f"corr_lookup disagrees with the plain lookup in {name}")
+        res[name] = dict(max_abs_err=err, unequal=unequal, max_abs_err_vs_f32=err_f32)
+
+    def kernel():
+        return corr.corr_lookup(pyramid, coords, torch.bfloat16)
+
+    def plain():
+        return corr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2).to(torch.bfloat16)
+
+    ms = cuda_ms(kernel)
+    dev_ms = profiled_ms(torch, kernel, "corr_lookup_kernel")
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    plain_dev_ms = profiled_ms(torch, plain, None, iters=5)
+    bound_ms, nbytes = corr_bound(b, h, w)
+    res.update(shape=list(CORR_SHAPE), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               plain_device_ms=plain_dev_ms, bound_ms=bound_ms, bound_by="bytes",
+               bound_share=bound_ms / ms, device_bound_share=bound_ms / dev_ms,
+               device_gb_per_s=nbytes / dev_ms / 1e6)
+    log(f"corr_lookup {CORR_SHAPE} bf16: events {ms:.4f} ms ({bound_ms / ms:.3f} of the "
+        f"bound), device {dev_ms:.4f} ms ({bound_ms / dev_ms:.3f}, "
+        f"{nbytes / dev_ms / 1e6:.0f} GB/s); plain {plain_ms:.4f} ms events, "
+        f"{plain_dev_ms:.4f} ms device; bound {bound_ms:.4f} ms (bytes)")
+    return res
 
 
 def phase_k1_backward(torch, conv, F):
@@ -1275,6 +1342,9 @@ def phase_spatio5(torch, conv, attention, rl, cfg, video, org, masks):
     """One config-5 train step with the RAFT spatio signal (log_spatio)."""
     import dataclasses
 
+    from rovr_torch.models.raft import pairwise_flows
+    from rovr_torch.ops import corr
+
     cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, log_spatio=True))
     mods = rl.make_modules(cfg, device=video.device)
     state = rl.init_state(cfg, mods, seed=0)
@@ -1282,15 +1352,21 @@ def phase_spatio5(torch, conv, attention, rl, cfg, video, org, masks):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(conv, attention)   # counts from here are this step's
+    lookups, calls = corr.corr_lookup.launches, pairwise_flows.calls
     t0 = time.time()
     _, metrics, recon = rl.train_step(state, mods, cfg, video, org, generator=gen,
                                       masks=masks)
     torch.cuda.synchronize()
     step_s = time.time() - t0
     counts = _counts(conv, attention)
+    lookups = corr.corr_lookup.launches - lookups
+    calls = pairwise_flows.calls - calls
     m = _finite_metrics(metrics)
     if counts != TRAIN_LAUNCHES or "Episode/spatio" not in m:
         raise AssertionError(f"spatio train step: launches {counts}, metrics {sorted(m)}")
+    if lookups != mods.raft.iters * calls:
+        raise AssertionError(f"spatio train step: {lookups} lookup launches for {calls} "
+                             f"RAFT calls of {mods.raft.iters} iterations")
     v, o = (x.float() * (1.0 / 255.0) for x in (video, org))
 
     def spatio():  # the step's three RAFT passes (recon, original, corrupted)
@@ -1300,9 +1376,11 @@ def phase_spatio5(torch, conv, attention, rl, cfg, video, org, masks):
     raft_dev_ms = profiled_ms(torch, spatio, None, iters=1)
     res = dict(step_s=step_s, launches=counts, metrics=m, raft_ms=raft_ms,
                raft_device_ms=raft_dev_ms, flow_size=rl.resolved_flow_size(cfg),
+               lookup_launches=lookups, raft_calls=calls,
                pairs=3 * video.shape[0] * (video.shape[1] - 1),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"config-5 train step with log_spatio: {step_s:.3f} s, launches {counts}, "
+        f"{lookups} lookup launches over {calls} RAFT calls, "
         f"Episode/spatio {m['Episode/spatio']:.4f}; RAFT's three passes ({res['pairs']} "
         f"pairs at {res['flow_size']}^2) {raft_ms:.1f} ms events, {raft_dev_ms:.1f} ms "
         f"device; peak {res['peak_mem_gb']:.2f} GB")
@@ -3582,7 +3660,8 @@ def main() -> int:
     from rovr_torch.data import corruption, dataset, device_synthetic, native_loader, synthetic
     from rovr_torch.models.layers import flax_init_state
     from rovr_torch.models.local_net import LocalNetUNet
-    from rovr_torch.ops import attention, conv, cuda_build
+    from rovr_torch.models import raft
+    from rovr_torch.ops import attention, conv, corr, cuda_build
     from rovr_torch.train import evaluate, imitation, pipeline, pretrain_local, rl
     from rovr_torch.utils import checkpoint, convert, profiling
 
@@ -3596,12 +3675,13 @@ def main() -> int:
     log("TF32 off for cuDNN convs and matmuls (f32 references run in full f32)")
 
     t0 = time.time()
-    logs = cuda_build.build(["fused_conv3x3", "flash_attention", "frame_decode"])
+    logs = cuda_build.build(["fused_conv3x3", "flash_attention", "corr_lookup", "frame_decode"])
     build_s = time.time() - t0
-    log(f"build (nvcc for both CUDA sources, g++ for the frame decoder, all at once): "
+    log(f"build (nvcc for the three CUDA sources, g++ for the frame decoder, all at once): "
         f"{build_s:.1f} s")
     ptxas = {}
-    label = {"fused_conv3x3": "K1", "flash_attention": "K2-K4", "frame_decode": "decoder"}
+    label = {"fused_conv3x3": "K1", "flash_attention": "K2-K4", "corr_lookup": "lookup",
+             "frame_decode": "decoder"}
     for name, text in logs.items():
         kernel = None
         for line in text.splitlines():
@@ -3629,6 +3709,7 @@ def main() -> int:
     rows, k1_err = timed(phase_k1, torch, conv, F)
     k1_bwd, k1_bwd_err = timed(phase_k1_backward, torch, conv, F)
     attn, attn_err = timed(phase_attention, torch, attention, F)
+    lookup = timed(phase_corr_lookup, torch, corr, raft)
     unet = timed(phase_unet, torch, conv, LocalNetUNet, flax_init_state)
     serving, mods, state, cfg, u8 = timed(phase_serving, torch, np, conv, attention, Config,
                                           rl, infer, synthetic)
@@ -3784,6 +3865,19 @@ def main() -> int:
     for row in kernels[1:]:
         row["per"] += ("; mma_ms and mma_device_ms: the mma.sync kernel of the first port on "
                        "the same inputs, by its test hook")
+    kernels.append(dict(
+        name="corr_lookup", route="cuda", source="rovr_torch/csrc/corr_lookup.cu",
+        replaces="none (rovr_tpu/models/raft.py lookup_corr: one-hot products, XLA's)",
+        launches_per_spatio_step=spatio5["lookup_launches"],
+        max_abs_err=lookup["bf16"]["max_abs_err"], ms=lookup["ms"],
+        plain_ms=lookup["plain_ms"], bound_ms=lookup["bound_ms"], bound_by="bytes",
+        device_ms=lookup["device_ms"], plain_device_ms=lookup["plain_device_ms"],
+        per="one call at RAFT's main shape (128 pairs, 32 x 32 positions, levels "
+            "32/16/8/4), bf16 out; ms: CUDA events over 20 calls; device_ms: the "
+            "profiler's device time of the same calls",
+        design="a thread per (position, level, tap row): two rows of 9 values in "
+               "registers, 7 taps from them; 8 positions a block, outputs staged in "
+               "shared memory and stored 16 bytes at a time"))
     # launches per pretrain step (Config(), batch 24) and per imitation step
     # (Config()'s canvas policy; the pipeline config's attention policy)
     for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):
@@ -3800,7 +3894,8 @@ def main() -> int:
             path: model_axis[path]["launches"][kid] for path in MODEL_AXIS_PATHS}
         row["launches_per_pipelined_step"] = pipelined5["chain"][0]["launches"][kid]
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
-                  ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn, unet=unet,
+                  ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn,
+                  corr_lookup=lookup, unet=unet,
                   serving=serving,
                   profile=profile, rollout_rewards=rewards, policy5=policy,
                   setup5_s=setup5_s, source5_s=source5_s, serving5=serving5,

@@ -15,12 +15,14 @@ Conventions kept from the JAX file: public tensors NHWC, coordinates
 2x2 blocks with an odd edge cropped; features in the compute dtype, the
 correlation, flow state and the flow head's last conv in float32.
 
-The correlation is one batched matmul and its lookup an index gather with
-a validity mask: bilinear with zero padding outside the level, as the JAX
-file's one-hot products compute it. Its convolutions are stock PyTorch
-(`F.conv2d`): XLA lowered them by itself, no kernel of the port stands
-behind them. `pairwise_flows` runs the frame pairs in chunks of at most
-`PAIR_CHUNK`: every op is per pair, so chunks change only the peak memory.
+The correlation is one batched matmul. Its lookup, bilinear with zero
+padding outside the level as the JAX file's one-hot products compute it, is
+`ops.corr.corr_lookup`: one CUDA kernel a refinement iteration on the card
+(csrc/corr_lookup.cu), the plain `lookup_corr` (an index gather with a
+validity mask) on the CPU. The convolutions are stock PyTorch (`F.conv2d`):
+XLA lowered them by itself, no kernel of the port stands behind them.
+`pairwise_flows` runs the frame pairs in chunks of at most `PAIR_CHUNK`:
+every op is per pair, so chunks change only the peak memory.
 
 Parameter names follow the flax tree (`fnet`, `cnet`, `update.motion`,
 `update.gru`, `update.flow_head`), so `utils.convert` carries JAX weights
@@ -47,10 +49,10 @@ from torch import nn
 
 from rovr_torch.models.layers import Conv2d, reference_tensor
 from rovr_torch.models.video_processor import resize_bilinear
+# lookup_corr, the lookup's plain version, is named here for the parity tests
+from rovr_torch.ops.corr import NUM_LEVELS, RADIUS, corr_lookup, lookup_corr  # noqa: F401
 from rovr_torch.utils.profiling import annotate
 
-NUM_LEVELS = 4
-RADIUS = 3
 HIDDEN_DIM = 96
 CONTEXT_DIM = 64
 PAIR_CHUNK = 128   # frame pairs per RAFT call in pairwise_flows
@@ -159,46 +161,6 @@ def correlation_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor) -> List[torch.
     return pyramid
 
 
-def _bilinear_lookup(vol: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """Sample vol (B, N, H, W) at float coordinates ys/xs (B, N, K):
-    bilinear, zero outside the volume."""
-    b, n, h, w = vol.shape
-    if h == 0 or w == 0:  # a level pooled to nothing contributes zeros
-        return ys.new_zeros(ys.shape)
-    flat = vol.reshape(b, n, h * w)
-    y0, x0 = torch.floor(ys), torch.floor(xs)
-    wy, wx = ys - y0, xs - x0
-
-    def gather(yi, xi):
-        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
-        return torch.gather(flat, 2, idx) * valid
-
-    v00 = gather(y0, x0)
-    v01 = gather(y0, x0 + 1)
-    v10 = gather(y0 + 1, x0)
-    v11 = gather(y0 + 1, x0 + 1)
-    return (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
-            + v10 * wy * (1 - wx) + v11 * wy * wx)
-
-
-def lookup_corr(pyramid: List[torch.Tensor], coords: torch.Tensor) -> torch.Tensor:
-    """Radius-RADIUS lookup at `coords` (B, H, W, 2 [x, y]) across the
-    pyramid -> (B, H, W, NUM_LEVELS * (2R+1)^2) motion features."""
-    b, h, w, _ = coords.shape
-    n, k = h * w, 2 * RADIUS + 1
-    r = torch.arange(-RADIUS, RADIUS + 1, dtype=torch.float32, device=coords.device)
-    offs_y = r.repeat_interleave(k)   # the JAX meshgrid's "ij" order
-    offs_x = r.repeat(k)
-    out = []
-    for lvl, vol in enumerate(pyramid):
-        c = coords.reshape(b, n, 2) / (2.0 ** lvl)
-        ys = c[..., 1:2] + offs_y
-        xs = c[..., 0:1] + offs_x
-        out.append(_bilinear_lookup(vol, ys, xs))
-    return torch.cat(out, dim=-1).reshape(b, h, w, NUM_LEVELS * k * k)
-
-
 class SmallMotionEncoder(nn.Module):
     """corr + flow -> 82 motion channels (80 conv features + the flow)."""
 
@@ -247,7 +209,13 @@ class FlowHead(nn.Module):
 
 
 class UpdateCell(nn.Module):
-    """One refinement iteration: corr lookup -> motion -> GRU -> delta flow."""
+    """One refinement iteration: corr lookup -> motion -> GRU -> delta flow.
+
+    The lookup is `ops.corr.corr_lookup`: on the card one kernel launch
+    (counted by `corr_lookup.launches`) writes the 196 motion features in the
+    motion encoder's compute dtype, NHWC in memory under (N, 196, h, w)
+    strides, as casting the plain lookup's permuted output gave; on the CPU
+    and `meta` the plain `lookup_corr` computes them."""
 
     def __init__(self, dtype=torch.bfloat16):
         super().__init__()
@@ -258,7 +226,7 @@ class UpdateCell(nn.Module):
     def forward(self, hid, coords1, coords0, context, pyramid):
         """hid (N, 96, h, w) f32, coords (N, h, w, 2) f32 (x, y), context
         (N, 64, h, w) f32 -> (hid, coords1)."""
-        corr = lookup_corr(pyramid, coords1).permute(0, 3, 1, 2)
+        corr = corr_lookup(pyramid, coords1.contiguous(), self.motion.dtype)
         flow = (coords1 - coords0).permute(0, 3, 1, 2)
         m = self.motion(flow, corr)
         inp = torch.cat([context, m.float()], dim=1)

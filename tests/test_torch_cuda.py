@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K4) against their plain versions on the card,
-and the CPU-side rules that choose and guard them; the rollout's re-encode
-replayed from its CUDA graph against the eager method.
+"""The port's CUDA kernels (K1-K4, RAFT's correlation lookup) against their
+plain versions on the card, and the CPU-side rules that choose and guard
+them; the rollout's re-encode replayed from its CUDA graph against the eager
+method.
 
 The `cuda`-marked tests need an NVIDIA GPU and skip without one. This file
 imports only numpy, torch, pytest and rovr_torch, so it also runs on a
@@ -17,12 +18,27 @@ import numpy as np
 import pytest
 import torch
 
+from rovr_torch.models import raft as traft
 from rovr_torch.ops import attention as tops
 from rovr_torch.ops import conv as tconv
+from rovr_torch.ops import corr as tcorr
 
 ATTN_TOL = 2e-2   # x max|plain|: bf16 outputs (2^-8), P and dS rounded to bf16
 LSE_TOL = 1e-3    # absolute, f32 LSE
 K1_TOL = 2e-2     # x max|plain|: bf16 output
+# RAFT's lookup kernel against the plain lookup cast to the output dtype:
+# f32 within CORR_TOL x max|plain|, bf16 within one bf16 ulp of the plain
+# value. The margin is for FMA contraction and summation order only: the
+# kernel rounds each product and sum in the plain version's order, so it
+# should read 0.
+CORR_TOL = 1e-5
+
+# name: (B, H, W) of the coordinates; the levels are H >> l by W >> l.
+CORR_SHAPES = {
+    "main": (128, 32, 32),     # a chunk of 128 pairs at 256^2: levels 32/16/8/4
+    "odd_7x9": (3, 7, 9),      # odd edges crop: levels 7x9, 3x4, 1x2, 0x1
+    "empty_2x2": (5, 2, 2),    # levels 2x2, 1x1, 0x0, 0x0
+}
 
 # name: ((B, H, Lq, Lk, D), the K2 kernel it must launch). The TMA kernel
 # takes 64 query rows an item below the SM count's worth of 128-row items
@@ -246,6 +262,120 @@ def test_cpu_forward_runs_the_twin_and_counts_no_launch():
     assert tops.flash_attention_fwd.launches == before
     torch.testing.assert_close(o, o_p, atol=0, rtol=0)
     torch.testing.assert_close(lse, lse_p, atol=0, rtol=0)
+
+
+def _corr_inputs(b, h, w, device="cpu", dim=16, seed=0):
+    """A pyramid of random features and coordinates inside, on and past
+    every edge of each level (fractions, integers, and values just below an
+    integer, where cx + dx rounds up to the next one)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f1, f2 = (torch.randn(b, h, w, dim, device=device, generator=gen) for _ in range(2))
+    pyramid = traft.correlation_pyramid(f1, f2)
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                            torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1).expand(b, h, w, 2)
+    coords = grid + 4.0 * torch.randn(b, h, w, 2, device=device, generator=gen)
+    edges = []
+    for lvl in range(tcorr.NUM_LEVELS):
+        s = 2.0 ** lvl
+        for size in (h >> lvl, w >> lvl):
+            edges += [s * e for e in (-4.5, -4.0, -3.5, -3.0, -0.5, 0.0, size - 1.0,
+                                      size - 0.5, size, size + 3.0, size + 3.5, size + 4.0)]
+    below = torch.nextafter(torch.tensor(edges), torch.tensor(-1e9)).tolist()
+    values = torch.tensor(edges + below, device=device)
+    flat = coords.reshape(-1, 2)[1::2]   # every other position: x and y from the edges
+    flat.copy_(values[torch.randint(0, values.numel(), flat.shape, device=device,
+                                    generator=gen)])
+    coords[0] = grid[0]            # the first iteration's coordinates
+    return pyramid, coords.contiguous()
+
+
+def _within_one_bf16_ulp(got, ref):
+    """|got - ref| <= one bf16 ulp at the larger of the two magnitudes."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    return bool(((g - r).abs() <= torch.ldexp(torch.ones_like(g), e - 8)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", ["odd_7x9", "empty_2x2"])
+def test_corr_lookup_cpu_runs_the_twin_and_counts_no_launch(name, dtype):
+    """A CPU call is the plain lookup, permuted and cast, in the kernel's
+    layout: (B, 196, H, W) over NHWC memory."""
+    pyramid, coords = _corr_inputs(*CORR_SHAPES[name])
+    before = tcorr.corr_lookup.launches
+    got = tcorr.corr_lookup(pyramid, coords, dtype)
+    want = tcorr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2).to(dtype)
+    assert tcorr.corr_lookup.launches == before
+    assert got.dtype == dtype and got.stride() == want.stride()
+    assert got.permute(0, 2, 3, 1).is_contiguous()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_corr_lookup_meta_runs_the_twin_and_counts_no_launch():
+    b, h, w = CORR_SHAPES["main"]
+    coords = torch.empty(b, h, w, 2, device="meta")
+    pyramid = [torch.empty(b, h * w, h >> l, w >> l, device="meta") for l in range(4)]
+    before = tcorr.corr_lookup.launches
+    out = tcorr.corr_lookup(pyramid, coords, torch.bfloat16)
+    assert tcorr.corr_lookup.launches == before
+    assert out.device.type == "meta" and out.shape == (b, tcorr.CHANNELS, h, w)
+    assert out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("coords_f64", TypeError, "f32 coords"),
+    ("level_bf16", TypeError, "f32 level 2"),
+    ("out_f16", TypeError, "bf16 or f32"),
+    ("level_noncontig", ValueError, "contiguous level 1"),
+    ("coords_noncontig", ValueError, "contiguous coords"),
+    ("coords_3", ValueError, r"coords \(B,H,W,2\)"),
+    ("coords_3d", ValueError, r"coords \(B,H,W,2\)"),
+    ("level_shape", ValueError, "level 3 .* does not fit"),
+    ("three_levels", ValueError, "4 levels"),
+    ("no_positions", ValueError, r"0 < B\*H\*W"),
+    ("requires_grad", ValueError, "forward only"),
+])
+def test_corr_lookup_arg_checks_refuse(bad, err, match):
+    """What a CUDA call checks before any launch, on CPU tensors."""
+    b, h, w = 2, 8, 8
+    coords = torch.zeros(b, h, w, 2)
+    pyramid = [torch.zeros(b, h * w, h >> l, w >> l) for l in range(4)]
+    dtype = torch.bfloat16
+    if bad == "coords_f64":
+        coords = coords.double()
+    elif bad == "level_bf16":
+        pyramid[2] = pyramid[2].bfloat16()
+    elif bad == "out_f16":
+        dtype = torch.float16
+    elif bad == "level_noncontig":
+        pyramid[1] = torch.zeros(b, h * w, w >> 1, h >> 1).transpose(2, 3)
+    elif bad == "coords_noncontig":
+        coords = torch.zeros(b, w, h, 2).transpose(1, 2)
+    elif bad == "coords_3":
+        coords = torch.zeros(b, h, w, 3)
+    elif bad == "coords_3d":
+        coords = coords[0]
+    elif bad == "level_shape":
+        pyramid[3] = torch.zeros(b, h * w, 2, 2)
+    elif bad == "three_levels":
+        pyramid = pyramid[:3]
+    elif bad == "no_positions":
+        coords = torch.zeros(0, h, w, 2)
+        pyramid = [p[:0] for p in pyramid]
+    elif bad == "requires_grad":
+        pyramid[0].requires_grad_()
+    with pytest.raises(err, match=match):
+        tcorr.check_kernel_args(pyramid, coords, dtype)
+
+
+@pytest.mark.parametrize("name", list(CORR_SHAPES))
+def test_corr_lookup_arg_checks_accept_the_shapes(name):
+    b, h, w = CORR_SHAPES[name]
+    coords = torch.empty(b, h, w, 2, device="meta")
+    pyramid = [torch.empty(b, h * w, h >> l, w >> l, device="meta") for l in range(4)]
+    for dtype in tcorr.OUT_DTYPES:
+        tcorr.check_kernel_args(pyramid, coords, dtype)
 
 
 # ---------------------------------------------------------------- on the card
@@ -659,3 +789,45 @@ def test_reencode_graph_matches_eager(cuda, canvas, per_row, mode):
     assert torch.equal(c_b, c_e) and torch.equal(f_b, f_e)
     assert not torch.equal(f_b, f_a)
     assert tconv.fused_conv3x3.launches == k1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(CORR_SHAPES))
+def test_corr_lookup_matches_plain_on_the_card(cuda, name, dtype):
+    """RAFT's lookup kernel against the plain lookup on the card, cast to
+    the output dtype, with its strides; one launch a call."""
+    pyramid, coords = _corr_inputs(*CORR_SHAPES[name], device="cuda",
+                                   dim=128 if name == "main" else 16)
+    before = tcorr.corr_lookup.launches
+    got = tcorr.corr_lookup(pyramid, coords, dtype)
+    assert tcorr.corr_lookup.launches == before + 1
+    want = tcorr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2).to(dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and got.stride() == want.stride()
+    assert want.float().abs().min().item() == 0.0     # some taps fell outside
+    if dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= CORR_TOL * want.abs().max().item(), err
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.cuda
+def test_pairwise_flows_launches_the_lookup_iters_times_calls(cuda, monkeypatch):
+    """RAFT on the card: `corr_lookup.launches` grows by iters x the RAFT
+    calls `pairwise_flows` makes, and the plain lookup never runs."""
+    plain = []
+    monkeypatch.setattr(tcorr, "lookup_corr",
+                        lambda *a: plain.append(a) or pytest.fail("plain lookup on the card"))
+    m = traft.RAFTSmall(iters=3).cuda().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    video = torch.rand(2, 4, 64, 64, 3, device="cuda", generator=gen)   # 6 pairs
+    before = (tcorr.corr_lookup.launches, traft.pairwise_flows.calls)
+    with torch.no_grad():
+        flows = traft.pairwise_flows(m, video, size=64, chunk=4)
+    torch.cuda.synchronize()
+    calls = traft.pairwise_flows.calls - before[1]
+    assert calls == 2 and not plain
+    assert tcorr.corr_lookup.launches - before[0] == m.iters * calls
+    assert flows.shape == (2, 3, 64, 64, 2) and bool(torch.isfinite(flows).all())
