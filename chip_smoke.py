@@ -1,85 +1,65 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (rovr_torch) on one NVIDIA GPU (H100).
+"""Drive of the PyTorch/CUDA port (rovr_torch) on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Builds every hand-written kernel of the port from rovr_torch/csrc with nvcc
 (one process per source, all at once, beside g++ for the frame decoder),
-holds each against its plain PyTorch version at the shapes its paths give
-it, then drives serving (`rovr_torch.infer.reconstruct_clips`) at the full
-width of `Config()` and of config 5, the config-5 RL train step
-(`rovr_torch.train.rl.train_step`) and driver, evaluation, UNet
-pretraining, the imitation warm start, the four-stage pipeline, training
-from a frame tree and reference warm starts, the model axis and the
-double-buffered step, and checks that each path really went through the
-kernels: every launch count is set to 0 just before a path is driven and
-read just after. Phases:
+holds each kernel against its plain version at the main path's shapes and
+times it there beside its bound, its plain version and the library call,
+counts the launches of one served batch, then drives the paths that no cell
+of the benchmark (h100bench/) reaches:
+the RL driver and its checkpoints, evaluation, the command line, the device
+source, UNet pretraining, the imitation warm start, the four-stage pipeline,
+π₁, training from a frame tree, reference warm starts, the MoE and the
+attention leftovers, the s2d canvas, the meshes and the double-buffered
+step. Each path checks that it went through the kernels: every launch count
+is set to 0 just before a path is driven and read just after.
 
-  1. device, card name and power limit; TF32 off for the comparisons;
-  2. K1 (fused conv3x3) vs its plain version at the three serving shapes,
-     the pretrain step's (batch 24, 256^2), the pipeline's 160^2 ones
-     (40^2 and 20^2 maps at batch 24 and 4), two ragged shapes (odd H/W,
-     Cin = 72 past a 64-channel slice, one at W = 32 under the 4 x 32
-     spatial tile) and relu=False; CUDA-event times of the kernel, the plain
-     version and cuDNN (the library yardstick, used nowhere in the port),
-     and the profiler's device time of the kernel and of cuDNN, beside the
-     computed bound, with each shape's share of the bound and its ratio to
-     cuDNN under both measures; K1's backward (cuDNN's conv gradient in
-     bf16) vs autograd of the f32 plain version at the pretrain and 160^2
-     shapes and a ragged one (gx, gk, gb within 2e-2 * max|plain|), and at
-     the pretrain shapes its times (events and device time) beside cuDNN's
-     forward+backward and the plain-autograd backward it replaced;
-  3. K2/K3/K4 (flash attention forward, dq, dk/dv) vs their plain twins at
-     the rollout shape (8,4,256,64), the PPO shape (512,4,256,64),
-     tests/test_attention.py's shapes (padded D, unaligned L, cross 128x200,
-     D 128), 256 heads of L 130, and the pipeline's imitation (20,4,80,64)
-     and rollout (4,4,80,64) shapes: out, lse, dq, dk, dv, and the mma.sync
-     kernels (by their test hooks) on the same inputs; the K2, K3 and K4
-     kernels the profiler saw at each shape against `flash_fwd_route` and
-     `flash_bwd_route`; at the rollout and PPO shapes CUDA-event times and
-     the profiler's device time beside the bound, the twins, the mma.sync
-     kernels and F.scaled_dot_product_attention (forward, and forward+backward
-     for K3+K4; a yardstick the port never calls), the layout copies the
-     policy makes around K2 (q, k, v in, O out) and around K3 and K4 (dO
-     in, dq, dk, dv out), and at the rollout shape the host's microseconds
-     per forward call; RAFT's correlation lookup kernel (ops/corr.py) vs the
-     plain lookup at its main shape (128 pairs, 32 x 32 positions, levels
-     32/16/8/4), bf16 and f32 out, its times beside the bound and the plain
-     version's;
-  4. one full-width UNet call, kernel vs plain;
-  5. serving at Config() widths: ResNet-50, UNet 64-512, PolicyNet2 on a
-     160^2 canvas, 256^2 frames, S = T = 20, batch 8, random init from a
-     seed, uint8 synthetic clips: one warm-up batch, then timed batches; K1
-     must launch exactly 60 times per batch;
-  6. one more serving batch under torch.profiler: device time by kernel,
-     K1's share, the device's idle share (trace in chiprun_out/);
-  7. one greedy rollout with the LPIPS reward path at full width (batch 2);
-     its metrics must be finite;
-  8. config 5's attention policy at full width (hidden 256, 4 heads, depth
-     2, 4 patch tokens, 64 frames, batch 8): logits, values and the actor
-     loss's gradient through K2-K4 vs the plain attention path;
-  9. config-5 serving: batch 8, S = T = 64, greedy; exactly 128 K2 and 192
-     K1 launches per batch;
- 10. config-5 train steps (batch 8, S = T = 64, 256^2, LPIPS cache from
-     stage 1, init chunk 8): a warm-up, then timed steps; each must launch
-     exactly 150 K2, 20 K3, 20 K4 and 192 K1, give finite metrics and move
-     the actor's and critic's parameters; sec/step, frames/s, peak memory;
- 11. one config-5 train step taken in parts (episode init, rollout, PPO),
-     host-timed, then one under torch.profiler: device time by kernel, the
-     idle share, and K2-K4's launches by kernel (every one the TMA route);
- 12. the RL loop `rl.run` at config 5 on phase 9's clips (with their
-     masks): 3 iterations, a checkpoint and metrics every iteration; each
-     iteration must launch exactly 150 K2, 20 K3, 20 K4 and 192 K1;
-     metrics.jsonl finite with Episode/exposure, the image strip written,
-     the newest checkpoint restored bit for bit; one more iteration from
-     `restore_from` continues state.step; seconds per iteration, the
-     checkpoint's bytes, save time on the training thread against the
-     background write, peak memory;
- 13. one config-5 train step with the RAFT spatio signal (`log_spatio`):
-     the same launch counts, a finite Episode/spatio, 12 lookup launches a
-     RAFT call (144 a step); RAFT's time within it;
+Where the other checks live: tests/test_torch_cuda.py holds each kernel
+against its plain twin at every shape, ragged ones too, and checks the
+route the profiler saw; the benchmark's cells serve and train at Config()
+and config 5 (with and without RAFT's flow term) against a plain f32
+reference, with their launch counts and spans. The phases keep their
+numbers, so 4, 6-11 and 13 (the UNet, the serving profile, the config-5
+train step, its parts and profiles, the spatio step) are absent. Phases:
+
+  1. device, card name and power limit; TF32 off for the f32 references;
+     the build, ptxas' registers and spills, and the TMA kernels' dynamic
+     shared memory;
+  2. K1 (fused conv3x3) at one serving UNet call (conv3, conv4 and conv5 at
+     batch 8, 256^2), held against its plain version (K1_TOL): CUDA-event
+     times of the kernel, the plain version and cuDNN (the library
+     yardstick, used nowhere in the port), the profiler's device time of
+     the kernel and of cuDNN, beside the bound (`conv_bound` of
+     h100bench/work.py); K1's backward (cuDNN's conv gradient in bf16) at
+     the pretrain step's shapes (batch 24, 256^2), held against its f32
+     plain twin (K1_TOL): its times beside cuDNN's forward+backward, the
+     plain-autograd backward it replaced and its bound;
+  3. K2/K3/K4 (flash attention forward, dq, dk/dv) at the PPO shape
+     (512,4,256,64) and K2 at the rollout shape (8,4,256,64), held against
+     their plain twins (ATTN_TOL, the LSE within LSE_TOL): times beside
+     the bound (work.py's `attention_bound_ms`), the plain twins and
+     F.scaled_dot_product_attention (forward, and forward+backward for
+     K3+K4; a yardstick the port never calls); RAFT's correlation lookup
+     kernel (ops/corr.py) at its main shape (128 pairs, 32 x 32 positions,
+     levels 32/16/8/4), held against the plain lookup in bf16 and f32
+     (CORR_TOL): times with bf16 out beside its bound and the plain
+     lookup's;
+  5. one served batch (`infer.reconstruct_clips`, greedy, batch 8) at
+     Config() (S = T = 20: exactly 60 K1) and at config 5 (S = T = 64: 192
+     K1 and 128 K2), no K3 or K4; uint8 frames written, actions in range;
+ 12. the RL loop `rl.run` at config 5 (batch 8, S = T = 64, 256^2) on one
+     batch of synthetic clips with their masks: 3 iterations, a checkpoint
+     and metrics every iteration; each iteration must launch exactly 150
+     K2, 20 K3, 20 K4 and 192 K1; metrics.jsonl finite with
+     Episode/exposure, the image strip written, the newest checkpoint
+     restored bit for bit; one more iteration from `restore_from` continues
+     state.step; seconds per iteration, the checkpoint's bytes, save time on
+     the training thread against the background write, peak memory;
  14. evaluation at config 5 on the same clips: one `evaluate.run` batch
-     (flow size 256; exactly 384 K1 and 128 K2, no K3 or K4) and one
+     (flow size 256; exactly 384 K1 and 128 K2, no K3 or K4, and 12 RAFT
+     lookups a RAFT call, `iters` x `pairwise_flows.calls`) and one
      `run_ci` batch with 2 draws (576 K1, 256 K2); every metric finite, the
      sequential output unlike the agentic one; host seconds, one
      `eval_step` under torch.profiler with RAFT's device time, peak memory;
@@ -115,15 +95,15 @@ read just after. Phases:
      `pipeline` as three subprocesses at once;
  20. config-5 train steps with the frame-selection policy π₁ (use_policy1,
      ppo_policy1: PolicyNet1 32-256 on the 256^2 canvas, a 4096 -> 64 head,
-     the ActionLSTM at hidden 1024) on phase 9's clips: a warm-up, then
+     the ActionLSTM at hidden 1024) on phase 12's clips: a warm-up, then
      timed steps; each must launch exactly what a step without π₁ does
      (192 K1, 150 K2, 20 K3, 20 K4), give finite metrics with
      PPO/actor1_loss, PPO/critic1_loss and Episode/coverage in (0, 1],
      targets in [0, 64), move actor1, critic1, actor2 and critic2 and leave
-     the LSTM, the UNet and the VideoProcessor as they were; sec/step beside
-     phase 10's, peak memory; one step under torch.profiler: the device
-     time of π₁'s ranges (`rovr/pi1_act`, `rovr/pi1_lstm`, `rovr/pi1_ppo`),
-     their share, the idle share;
+     the LSTM, the UNet and the VideoProcessor as they were; sec/step, peak
+     memory; one step under torch.profiler: the device time of π₁'s ranges
+     (`rovr/pi1_act`, `rovr/pi1_lstm`, `rovr/pi1_ppo`), their share, the
+     idle share;
  21. `rl.run` with π₁ at config 5: 2 iterations with a checkpoint each
      (the same launch counts), the newest restored bit for bit (π₁'s
      parameters and both new Adam states included), one resumed iteration
@@ -167,8 +147,8 @@ read just after. Phases:
      dropped tokens too; then at PPO's N = 131,072 tokens, forward +
      backward, under 2 GB above its inputs, timed;
  26. config-5 train steps with 4 experts in both encoder blocks: exactly
-     the dense step's 192 K1, 150 K2, 20 K3, 20 K4, finite metrics, the
-     experts' w1 moved; sec/step and peak memory beside phase 10's;
+     192 K1, 150 K2, 20 K3, 20 K4 as the dense step, finite metrics, the
+     experts' w1 moved; sec/step and peak memory;
  27. PolicyNet2(canvas_impl="s2d") against "plain" at Config() on the same
      weights (equal greedy actions at batch 8, values at 160 canvases within
      POLICY_TOL), both trunks timed;
@@ -190,16 +170,16 @@ read just after. Phases:
      second step and peak memory; then `parallel.dryrun.dryrun_multichip`
      over every visible card (one card: pass 1, data parallel);
  30. the double-buffered step `rl.train_step_pipelined` at config 5 (batch
-     8, S = T = 64, phase 9's clips as float): a chain of 3 steps, each on
+     8, S = T = 64, phase 12's clips as float): a chain of 3 steps, each on
      the previous next_init, against 3 `train_step`s and each next_init
      against `episode_init`, bit for bit (or the gap printed and held at
      phase 28's bounds), 192/150/20/20 K1-K4 launches a step; the plain
      and pipelined arms interleaved, 10 timed steps each after a warm-up
      (sec/step median and spread, frames/s, peak memory, the bytes of one
      EpisodeInit); one pipelined step under utils.profiling.trace (device
-     time summed against busy, the idle share beside phase 11's, the
-     init's device time and its streams, none of them the step's, and the
-     share of the init's window in which the step's streams ran work).
+     time summed against busy, the idle share, the init's device time and
+     its streams, none of them the step's, and the share of the init's
+     window in which the step's streams ran work).
 
 `python3 chip_smoke.py --grid 2x2` (four cards) builds the kernels and runs
 phase 29's paths and its planted fault on a (2, 2) NCCL mesh in four
@@ -208,8 +188,12 @@ processes, each against `train_step` on its card, then
 and `--grid DxM --gate` its one-epoch checks and planted fault alone;
 it writes chiprun_out/chip_smoke_grid4.json.
 
-Any failure raises (non-zero exit). Prints a {"kernels": [...]} line, the
-card's name and power limit, and as the last line
+Any failure raises (non-zero exit). Prints a {"kernels": [...]} line (each
+kernel's `max_abs_err` from its plain version and its times: `ms`,
+`plain_ms` and `library_ms` are CUDA events around 20 calls, 10 for K1's
+backward and K2-K4 at the PPO shape; `device_ms` and `library_device_ms`
+the profiler's device time of the same calls), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the rovr_torch package
 beside this file; without either it exits non-zero and prints no result.
 Writes the full record to chiprun_out/chip_smoke.json; the run directories
@@ -230,8 +214,6 @@ import subprocess
 import sys
 import time
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SERVING_SHAPES = {         # name: (B, H, W, Cin, Cout), batch 8 at 256^2
     "conv3": (8, 64, 64, 128, 256),
     "conv4": (8, 32, 32, 256, 512),
@@ -242,43 +224,24 @@ PRETRAIN_SHAPES = {        # conv3/4/5 of a pretrain step at Config(): batch 24,
     "conv4": (24, 32, 32, 256, 512),
     "conv5": (24, 64, 64, 512, 256),
 }
-PIPELINE_SHAPES = {        # the pipeline's 160^2 frames: 40^2 and 20^2 maps, ragged
-    "p160_conv3": (24, 40, 40, 128, 256),   # under K1's 4 x 32 tile; batch 24 in
-    "p160_conv4": (24, 20, 20, 256, 512),   # pretrain, 4 in the rollout
-    "p160_conv5": (24, 40, 40, 512, 256),
-    "r160_conv3": (4, 40, 40, 128, 256),
-    "r160_conv4": (4, 20, 20, 256, 512),
-    "r160_conv5": (4, 40, 40, 512, 256),
-}
-RAGGED = (3, 37, 29, 72, 40)   # odd H/W, Cin and Cout off the 64/128 tiles
-RAGGED32 = (2, 30, 32, 72, 200)  # W = 32 (4 x 32 tile), H off TH, Cout off 256
-K1_TOL = 2e-2                  # max|kernel - plain| <= K1_TOL * max|plain|
-UNET_TOL = dict(max_abs=1e-2, mean_abs=5e-4)  # K1 vs plain differ by bf16 LSBs
-SERVE_BATCHES = 3
 ATTN_SHAPES = {                # name: (B, H, Lq, Lk, D)
     "rollout": (8, 4, 256, 256, 64),
     "ppo": (512, 4, 256, 256, 64),
-    "L100_D32": (1, 1, 100, 100, 32),
-    "L130_D48": (2, 1, 130, 130, 48),
-    "cross128x200": (1, 2, 128, 200, 64),
-    "D128": (1, 1, 128, 128, 128),
-    "wide_L130": (64, 4, 130, 130, 64),  # K2's 128-row items, a warpgroup past Lq
-    "L70_D20": (1, 2, 70, 70, 20),   # D % 8 != 0: the mma.sync forward, element-wise copies
-    "imitation": (20, 4, 80, 80, 64),   # pipeline imitation: S = 20 rows of 20 x 4 tokens
-    "rollout160": (4, 4, 80, 80, 64),   # the pipeline's RL rollout, batch 4
 }
 K2_KERNELS = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}  # by route
 BWD_KERNELS = {"dq": {"tma": "flash_dq_tma_kernel", "mma": "flash_dq_kernel"},     # K3
                "dkv": {"tma": "flash_dkv_tma_kernel", "mma": "flash_dkv_kernel"}}  # K4
+K1_TOL = 2e-2     # max|kernel - plain| <= K1_TOL * max|plain|, K1 and its backward
 ATTN_TOL = 2e-2   # bf16 outputs (2^-8) and P, dS rounded to bf16
 LSE_TOL = 1e-3    # absolute, f32 LSE
-POLICY_TOL = 5e-2  # kernel vs plain attention path through the whole policy
+POLICY_TOL = 5e-2  # s2d against plain PolicyNet2: logprobs and values, x their scale
 TRAIN_STEPS = 3    # timed config-5 train steps after one warm-up
 RUN_ITERS = 3      # rl.run iterations at config 5
 FLOW_SIZE = 256    # RAFT's input size in the config-5 evaluation
 TRAIN_LAUNCHES = {"K1": 192, "K2": 150, "K3": 20, "K4": 20}  # per config-5 step
 CORR_SHAPE = (128, 32, 32)   # RAFT's lookup: a chunk of 128 pairs at 256^2 / 8
 CORR_TOL = 1e-5    # x max|plain|, f32 out: FMA contraction and sum order only
+TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
 
 
 def log(msg: str) -> None:
@@ -340,111 +303,105 @@ def profiled_ms(torch, fn, kernel: str | None = None, iters: int = 20,
                          f"{captures} captures of {iters} calls")
 
 
-def conv_bound(b, h, w, cin, cout, peak=PEAK_BF16_FLOPS):
-    """Least time (ms) for one conv call: operations over the peak rate,
-    or each operand read once and the output written once over HBM."""
-    flops = 2.0 * b * h * w * 9 * cin * cout
-    nbytes = 2.0 * b * h * w * cin + 2.0 * 9 * cin * cout + 4.0 * cout \
-        + 2.0 * b * h * w * cout
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
+def bench_work():
+    """h100bench/work.py: the peaks, `conv_bound` and `attention_cost` that
+    the benchmark's rooflines divide by, the one definition of K1-K4's
+    work."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100bench")
+    if path not in sys.path:
+        sys.path.append(path)
+    import work
+
+    return work
 
 
-def attention_cost(b, h, lq, lk, d):
-    """(FLOPs, bytes) of each of K2, K3, K4 at one shape. FLOPs: 2 per
-    multiply-add of the products (K2 two: S, PV; K3 three: S, dP, dQ; K4
-    four: S^T, dP^T, dV, dK). Bytes: every input read once and every output
-    written once (bf16 tensors, f32 LSE and delta)."""
-    mm = 2.0 * b * h * lq * lk * d
-    ql, kl, stat = 2.0 * b * h * lq * d, 2.0 * b * h * lk * d, 4.0 * b * h * lq
-    flops = {"fwd": 2 * mm, "dq": 3 * mm, "dkv": 4 * mm}
-    nbytes = {
-        "fwd": 2 * ql + 2 * kl + stat,          # q, k, v -> o, lse
-        "dq": 3 * ql + 2 * kl + 2 * stat,       # q, k, v, dO, lse, delta -> dq
-        "dkv": 2 * ql + 4 * kl + 2 * stat,      # q, k, v, dO, lse, delta -> dk, dv
-    }
-    return flops, nbytes
+def with_shares(row):
+    """A timing row with the share of its bound under events and under
+    device time."""
+    row.update(bound_share=row["bound_ms"] / row["ms"],
+               device_bound_share=row["bound_ms"] / row["device_ms"])
+    return row
+
+
+def summed(name, per, rows):
+    """One row of the kernels line from several calls' rows: their times
+    summed, their largest distance from the plain version."""
+    row = dict(name=name, per=per, **{k: sum(r[k] for r in rows) for k in TIMES},
+               max_abs_err=max(r["max_abs_err"] for r in rows))
+    row["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) \
+        else "bytes"
+    return with_shares(row)
+
+
+def held(what, got, want, tol):
+    """max|got - want|, which must be within tol * max|want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol * want.float().abs().max().item():
+        raise AssertionError(f"{what}: max|kernel-plain| {err} > {tol} * max|plain|")
+    return err
+
+
+def _conv_inputs(torch, gen, b, h, w, cin, cout):
+    x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
+    k = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+         / math.sqrt(9 * cin)).bfloat16()
+    bias = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+    return x, k, bias
 
 
 def phase_k1(torch, conv, F):
-    """K1 against its plain version; times beside the bound."""
+    """K1 at the serving UNet call's three shapes: held against its plain
+    version (K1_TOL), then timed beside the bound, the plain version and
+    cuDNN."""
+    work = bench_work()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_err = [], 0.0
-
-    def inputs(b, h, w, cin, cout):
-        x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
-        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
-             / math.sqrt(9 * cin)).bfloat16()
-        bias = 0.1 * torch.randn(cout, device="cuda", generator=gen)
-        return x, k, bias
-
-    cases = [(n, s, True) for n, s in SERVING_SHAPES.items()]
-    cases += [(f"pretrain_{n}", s, True) for n, s in PRETRAIN_SHAPES.items()]
-    cases += [(n, s, True) for n, s in PIPELINE_SHAPES.items()]
-    cases += [("ragged", RAGGED, True), ("ragged", RAGGED, False),
-              ("ragged32", RAGGED32, True), ("ragged32", RAGGED32, False),
-              ("conv4", SERVING_SHAPES["conv4"], False)]
-    for name, shape, relu in cases:
-        x, k, bias = inputs(*shape)
-        y = conv.fused_conv3x3(x, k, bias, relu).float()
-        ref = conv.fused_conv3x3_plain(x.float(), k.float(), bias, relu)
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        ok = err <= K1_TOL * scale
-        log(f"K1 {name} {shape} relu={relu}: max|kernel-plain| {err:.4g} "
-            f"(limit {K1_TOL * scale:.4g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version at {name}")
-        max_err = max(max_err, err)
-        if name not in SERVING_SHAPES or not relu:
-            continue
-        b, h, w, cin, cout = shape
+    rows = []
+    for name, shape in SERVING_SHAPES.items():
+        x, k, bias = _conv_inputs(torch, gen, *shape)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         w_cl = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b16 = bias.bfloat16()
+
         def kernel():
             return conv.fused_conv3x3(x, k, bias, True)
 
         def cudnn():
             return F.relu(F.conv2d(x_cl, w_cl, b16, padding=1))
 
+        err = held(f"K1 {name}", kernel(),
+                   conv.fused_conv3x3_plain(x.float(), k.float(), bias, True), K1_TOL)
         # events around 20 calls (the host's pace can set them for a short
         # kernel), and the profiler's device time of the same calls
-        ms, lib_ms = cuda_ms(kernel), cuda_ms(cudnn)
-        dev_ms = profiled_ms(torch, kernel, "conv3x3_kernel")
-        lib_dev_ms = profiled_ms(torch, cudnn)
-        plain_ms = cuda_ms(lambda: conv.fused_conv3x3_plain(x, k, bias, True), iters=5)
-        bound_ms, bound_by, flops = conv_bound(b, h, w, cin, cout)
-        rows.append(dict(call=name, shape=list(shape), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
-                         vs_library=ms / lib_ms, device_ms=dev_ms,
-                         library_device_ms=lib_dev_ms, device_tflops=flops / dev_ms / 1e9,
-                         device_bound_share=bound_ms / dev_ms,
-                         device_vs_library=dev_ms / lib_dev_ms, max_abs_err=err))
-        log(f"K1 {name}: events: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{bound_ms / ms:.3f} of the bound), cuDNN {lib_ms:.4f} ms (kernel/cuDNN "
-            f"{ms / lib_ms:.3f}); device time: kernel {dev_ms:.4f} ms ({bound_ms / dev_ms:.3f} "
-            f"of the bound), cuDNN {lib_dev_ms:.4f} ms (kernel/cuDNN "
-            f"{dev_ms / lib_dev_ms:.3f}); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
-
-    return rows, max_err
+        bound_ms, bound_by, _ = work.conv_bound(*shape)
+        r = with_shares(dict(
+            call=name, shape=list(shape), max_abs_err=err, ms=cuda_ms(kernel),
+            device_ms=profiled_ms(torch, kernel, "conv3x3_kernel"),
+            plain_ms=cuda_ms(lambda: conv.fused_conv3x3_plain(x, k, bias, True), iters=5),
+            library_ms=cuda_ms(cudnn), library_device_ms=profiled_ms(torch, cudnn),
+            bound_ms=bound_ms, bound_by=bound_by))
+        rows.append(r)
+        log(f"K1 {name} {shape}: events: kernel {r['ms']:.4f} ms ({r['bound_share']:.3f} of "
+            f"the bound), cuDNN {r['library_ms']:.4f} ms; device time: kernel "
+            f"{r['device_ms']:.4f} ms ({r['device_bound_share']:.3f} of the bound), cuDNN "
+            f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); max|kernel-plain| {err:.4g}")
+    return rows
 
 
-def corr_bound(b, h, w):
+def corr_bound(work, b, h, w):
     """Least time (ms) of one lookup call: the coordinates, an 8 x 8 window of
     each of the 4 levels per position in f32 and the bf16 output, each moved
     once over HBM."""
     n = b * h * w
     nbytes = n * (2 * 4 + 4 * 64 * 4 + 196 * 2)
-    return nbytes / PEAK_BYTES * 1e3, nbytes
+    return nbytes / work.PEAK_BYTES * 1e3, nbytes
 
 
 def phase_corr_lookup(torch, corr, raft):
-    """RAFT's correlation lookup kernel against the plain lookup at RAFT's
-    main shape, bf16 and f32 out; times beside the bound."""
+    """RAFT's correlation lookup kernel at RAFT's main shape: held against
+    the plain lookup cast to bf16 (one bf16 step, 2^-8) and in f32
+    (CORR_TOL), then timed with bf16 out beside its bound and the plain
+    lookup's."""
     b, h, w = CORR_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
     f1, f2 = (torch.randn(b, h, w, 128, device="cuda", generator=gen).bfloat16()
@@ -454,23 +411,12 @@ def phase_corr_lookup(torch, corr, raft):
                             torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij")
     coords = (torch.stack([gx, gy], dim=-1)[None]
               + 4.0 * torch.randn(b, h, w, 2, device="cuda", generator=gen))
-    res = {}
-    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        got = corr.corr_lookup(pyramid, coords, dt).float()
-        ref = corr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2)
-        want = ref.to(dt).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        err_f32 = (got - ref).abs().max().item()
-        unequal = int((got != want).sum())
-        scale = ref.abs().max().item()
-        limit = CORR_TOL * scale if dt == torch.float32 else 2.0 ** -8 * scale
-        log(f"corr_lookup {name}: max|kernel-plain cast| {err:.4g} ({unequal} of "
-            f"{got.numel()} values unequal; limit {limit:.4g}), max|kernel-plain f32| "
-            f"{err_f32:.4g}")
-        if err > limit:
-            raise AssertionError(f"corr_lookup disagrees with the plain lookup in {name}")
-        res[name] = dict(max_abs_err=err, unequal=unequal, max_abs_err_vs_f32=err_f32)
+
+    ref = corr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2)
+    err = {name: held(f"corr_lookup {name}", corr.corr_lookup(pyramid, coords, dt),
+                      ref.to(dt), tol)
+           for name, dt, tol in (("bf16", torch.bfloat16, 2.0 ** -8),
+                                 ("f32", torch.float32, CORR_TOL))}
 
     def kernel():
         return corr.corr_lookup(pyramid, coords, torch.bfloat16)
@@ -478,82 +424,39 @@ def phase_corr_lookup(torch, corr, raft):
     def plain():
         return corr.lookup_corr(pyramid, coords).permute(0, 3, 1, 2).to(torch.bfloat16)
 
-    ms = cuda_ms(kernel)
-    dev_ms = profiled_ms(torch, kernel, "corr_lookup_kernel")
-    plain_ms = cuda_ms(plain, iters=5, warmup=1)
-    plain_dev_ms = profiled_ms(torch, plain, None, iters=5)
-    bound_ms, nbytes = corr_bound(b, h, w)
-    res.update(shape=list(CORR_SHAPE), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-               plain_device_ms=plain_dev_ms, bound_ms=bound_ms, bound_by="bytes",
-               bound_share=bound_ms / ms, device_bound_share=bound_ms / dev_ms,
-               device_gb_per_s=nbytes / dev_ms / 1e6)
-    log(f"corr_lookup {CORR_SHAPE} bf16: events {ms:.4f} ms ({bound_ms / ms:.3f} of the "
-        f"bound), device {dev_ms:.4f} ms ({bound_ms / dev_ms:.3f}, "
-        f"{nbytes / dev_ms / 1e6:.0f} GB/s); plain {plain_ms:.4f} ms events, "
-        f"{plain_dev_ms:.4f} ms device; bound {bound_ms:.4f} ms (bytes)")
+    bound_ms, nbytes = corr_bound(bench_work(), b, h, w)
+    res = with_shares(dict(
+        shape=list(CORR_SHAPE), max_abs_err=err["bf16"], max_abs_err_f32=err["f32"],
+        ms=cuda_ms(kernel),
+        device_ms=profiled_ms(torch, kernel, "corr_lookup_kernel"),
+        plain_ms=cuda_ms(plain, iters=5, warmup=1),
+        plain_device_ms=profiled_ms(torch, plain, None, iters=5),
+        bound_ms=bound_ms, bound_by="bytes"))
+    res["device_gb_per_s"] = nbytes / res["device_ms"] / 1e6
+    log(f"corr_lookup {CORR_SHAPE} bf16: events {res['ms']:.4f} ms ({res['bound_share']:.3f} "
+        f"of the bound), device {res['device_ms']:.4f} ms ({res['device_bound_share']:.3f}, "
+        f"{res['device_gb_per_s']:.0f} GB/s); plain {res['plain_ms']:.4f} ms events, "
+        f"{res['plain_device_ms']:.4f} ms device; bound {bound_ms:.4f} ms (bytes); "
+        f"max|kernel-plain| {err}")
     return res
 
 
 def phase_k1_backward(torch, conv, F):
     """K1's backward (cuDNN's conv gradient in bf16, `fused_conv3x3_backward`)
-    against its f32 plain twin on the same inputs (`fused_conv3x3_backward_
-    plain`: autograd of the f32 plain conv under the mask of the same saved
-    output) at the pretrain step's and the pipeline's shapes and a ragged
-    one; beside it, for the record only, its distance from the
-    plain-autograd backward (autograd through the f32 plain version with
-    the mask of its own f32 forward, whose pre-activations within ~1e-6 of
-    zero can take the other sign than K1's) and the number of such mask
-    flips. At the
-    pretrain shapes its CUDA-event and device times beside cuDNN's
-    forward+backward (the library yardstick) and the plain-autograd
-    backward the port ran before, and its bound."""
+    at the pretrain step's shapes: held against its f32 plain twin
+    (`fused_conv3x3_backward_plain`, K1_TOL), then CUDA-event and device
+    times beside
+    cuDNN's forward+backward (the library yardstick), the plain-autograd
+    backward the port ran before (`plain_ms`: autograd through the f32
+    plain version) and its bound (dgrad + wgrad over the peak, or x, k, y, g
+    read and gx, gk, gb written over HBM)."""
+    work = bench_work()
     gen = torch.Generator(device="cuda").manual_seed(10)
-    rows, max_err = [], 0.0
-    cases = [(f"pretrain_{n}", s) for n, s in PRETRAIN_SHAPES.items()]
-    cases += [(n, s) for n, s in PIPELINE_SHAPES.items() if n.startswith("p160")]
-    cases += [("ragged", (2, 9, 7, 16, 24))]
-    for name, (b, h, w, cin, cout) in cases:
-        x = torch.randn(b, h, w, cin, device="cuda", generator=gen).bfloat16()
-        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
-             / math.sqrt(9 * cin)).bfloat16()
-        bias = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+    rows = []
+    for name, (b, h, w, cin, cout) in PRETRAIN_SHAPES.items():
+        x, k, bias = _conv_inputs(torch, gen, b, h, w, cin, cout)
         g = torch.randn(b, h, w, cout, device="cuda", generator=gen).bfloat16()
         y = conv.fused_conv3x3(x, k, bias, True)
-        calls = conv.fused_conv3x3.backward_calls
-        got = conv.fused_conv3x3_backward(x, k, y, g, True)
-        if conv.fused_conv3x3.backward_calls != calls + 1:
-            raise AssertionError("fused_conv3x3_backward did not count its call")
-
-        def old_backward():  # autograd through the f32 plain version
-            with torch.enable_grad():
-                xs, ks, bs = (t.detach().float().requires_grad_() for t in (x, k, bias))
-                return torch.autograd.grad(conv.fused_conv3x3_plain(xs, ks, bs, True),
-                                           (xs, ks, bs), g.float())
-
-        ref = conv.fused_conv3x3_backward_plain(x, k, y, g, True)
-        old = old_backward()
-        flips = ((y > 0) != (conv.fused_conv3x3_plain(x.float(), k.float(), bias, True) > 0))
-        torch.cuda.synchronize()
-        errs, old_rel = {}, {}
-        for gname, a, r, o in zip(("gx", "gk", "gb"), got, ref, old):
-            if a.dtype != (torch.float32 if gname == "gb" else torch.bfloat16):
-                raise AssertionError(f"K1 backward {gname} at {name}: dtype {a.dtype}")
-            err = (a.float() - r).abs().max().item()
-            limit = K1_TOL * r.abs().max().item()
-            errs[gname] = err
-            old_rel[gname] = (a.float() - o).abs().max().item() / o.abs().max().item()
-            if not err <= limit:
-                raise AssertionError(f"K1 backward {gname} at {name}: max|cuDNN bf16 - "
-                                     f"plain f32| {err} > {limit}")
-        max_err = max(max_err, *errs.values())
-        n_flips = int(flips.sum().item())
-        log(f"K1 backward {name} {(b, h, w, cin, cout)}: max|bf16 - plain f32| gx "
-            f"{errs['gx']:.4g} gk {errs['gk']:.4g} gb {errs['gb']:.4g}: ok; against the "
-            f"plain-autograd backward (its own f32 mask, {n_flips} of {flips.numel()} signs "
-            f"flipped) "
-            + ", ".join(f"{kname} {v:.4f}" for kname, v in old_rel.items()) + " of max")
-        if not name.startswith("pretrain_"):
-            continue
         x_cl = x.permute(0, 3, 1, 2).detach().requires_grad_()
         w_cl = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) \
             .requires_grad_()
@@ -567,388 +470,115 @@ def phase_k1_backward(torch, conv, F):
             out = F.relu(F.conv2d(x_cl, w_cl, b16, padding=1))
             return torch.autograd.grad(out, (x_cl, w_cl, b16), g_cl)
 
-        ms, dev_ms = cuda_ms(bwd, 10), profiled_ms(torch, bwd, None, 10)
-        lib_ms, lib_dev_ms = cuda_ms(cudnn_fb, 10), profiled_ms(torch, cudnn_fb, None, 10)
-        old_ms = cuda_ms(old_backward, iters=3, warmup=1)
+        def plain_backward():
+            with torch.enable_grad():
+                xs, ks, bs = (t.detach().float().requires_grad_() for t in (x, k, bias))
+                return torch.autograd.grad(conv.fused_conv3x3_plain(xs, ks, bs, True),
+                                           (xs, ks, bs), g.float())
+
+        err = max(held(f"K1 backward {gname} {name}", a, want, K1_TOL) for gname, a, want in zip(
+            ("gx", "gk", "gb"), bwd(), conv.fused_conv3x3_backward_plain(x, k, y, g, True)))
         flops = 2 * 2.0 * b * h * w * 9 * cin * cout   # dgrad + wgrad
         nbytes = (2.0 * 2 * b * h * w * cin + 2.0 * 2 * 9 * cin * cout     # x, gx; k, gk
                   + 2.0 * 2 * b * h * w * cout + 4.0 * cout)              # y, g; gb
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / work.PEAK_BF16_FLOPS, nbytes / work.PEAK_BYTES
         bound_ms = max(t_ops, t_bytes) * 1e3
-        rows.append(dict(call=name, shape=[b, h, w, cin, cout], ms=ms, device_ms=dev_ms,
-                         cudnn_fwd_bwd_ms=lib_ms, cudnn_fwd_bwd_device_ms=lib_dev_ms,
-                         old_plain_autograd_ms=old_ms, bound_ms=bound_ms,
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         max_abs_err=errs, vs_old_rel=old_rel, mask_flips=n_flips))
-        log(f"K1 backward {name} times: events {ms:.4f} ms, device {dev_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_ms / max(dev_ms, 1e-9):.3f} of it in device time); "
-            f"cuDNN forward+backward events {lib_ms:.4f} device {lib_dev_ms:.4f}; the "
-            f"plain-autograd backward {old_ms:.3f} ms ({old_ms / ms:.1f}x)")
-    return rows, max_err
-
-
-def kernels_run(torch, fn, captures: int = 3):
-    """Names of the device kernels one call of `fn` launches (torch.profiler).
-    The device is synchronized before each capture, so no earlier work is in
-    flight when tracing starts; a trace with no kernel at all is not an
-    observation and `fn` runs again under a new capture, up to `captures`
-    times; a trace that stays empty raises."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(captures):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ran = [e.key for e in prof.key_averages()
-               if getattr(e, "self_device_time_total", 0) > 0]
-        if ran:
-            return ran
-    raise AssertionError(f"the profiler saw no kernel in {captures} captures")
-
-
-def host_us(torch, fn, n: int = 1000) -> float:
-    """Host time of one call of `fn` (microseconds): the clock over n calls
-    with no synchronize between them, then one synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
-
-
-def check_k2_route(torch, attention, name, q, k, v):
-    """K2 by its wrapper: the kernel the profiler saw must be the one
-    `flash_fwd_route` names, and the C entry point must agree with it."""
-    d = q.shape[-1]
-    route = attention.flash_fwd_route(d)
-    if attention._lib().rovr_flash_fwd_route(d) != (route == "tma"):
-        raise AssertionError(f"K2 route at {name}: the C entry point disagrees with {route}")
-    out = {}
-    ran = kernels_run(torch, lambda: out.update(o=attention.flash_attention_fwd(q, k, v)))
-    want = K2_KERNELS[route]
-    other = K2_KERNELS["mma" if route == "tma" else "tma"]
-    if not any(want in n for n in ran) or any(other in n for n in ran):
-        raise AssertionError(f"K2 at {name}: route {route}, the profiler saw {ran}")
-    log(f"K2 {name}: route {route}, ran {[n for n in ran if 'flash' in n]}")
-    return route, out["o"]
-
-
-def check_bwd_route(torch, attention, name, q, k, v, do, lse, delta):
-    """K3 and K4 by their wrappers: the kernel the profiler saw must be the
-    one `flash_bwd_route` names (and the other route's must not run), and
-    the C entry point must agree. Returns (route, dq, (dk, dv))."""
-    d = q.shape[-1]
-    route = attention.flash_bwd_route(d)
-    if attention._lib().rovr_flash_bwd_route(d) != (route == "tma"):
-        raise AssertionError(f"K3/K4 route at {name}: the C entry point disagrees with {route}")
-    outs = {}
-    for kname in ("dq", "dkv"):
-        fn = getattr(attention, f"flash_attention_{kname}")
-        ran = kernels_run(torch, lambda: outs.update({kname: fn(q, k, v, do, lse, delta)}))
-        want = BWD_KERNELS[kname][route]
-        other = BWD_KERNELS[kname]["mma" if route == "tma" else "tma"]
-        if not any(want in n for n in ran) or any(other in n for n in ran):
-            raise AssertionError(f"{kname} at {name}: route {route}, the profiler saw {ran}")
-        log(f"{'K3' if kname == 'dq' else 'K4'} {name}: route {route}, ran "
-            f"{[n for n in ran if 'flash' in n]}")
-    return route, outs["dq"], outs["dkv"]
+        r = with_shares(dict(
+            call=name, shape=[b, h, w, cin, cout], max_abs_err=err, ms=cuda_ms(bwd, 10),
+            device_ms=profiled_ms(torch, bwd, None, 10),
+            plain_ms=cuda_ms(plain_backward, iters=3, warmup=1),
+            library_ms=cuda_ms(cudnn_fb, 10),
+            library_device_ms=profiled_ms(torch, cudnn_fb, None, 10),
+            bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes"))
+        rows.append(r)
+        log(f"K1 backward {name} {(b, h, w, cin, cout)}: events {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} ms, bound {bound_ms:.4f} ms ({r['device_bound_share']:.3f} "
+            f"of it in device time); cuDNN forward+backward events {r['library_ms']:.4f} "
+            f"device {r['library_device_ms']:.4f}; the plain-autograd backward "
+            f"{r['plain_ms']:.3f} ms ({r['plain_ms'] / r['ms']:.1f}x); max|kernel-plain| "
+            f"{err:.4g}")
+    return rows
 
 
 def phase_attention(torch, attention, F):
-    """K2/K3/K4 and their mma.sync kernels against the plain twins at every
-    listed shape, with the kernels each shape took; at the rollout and PPO
-    shapes times beside the bound, the twins, the mma.sync kernels, SDPA and
-    the layout copies around K2-K4."""
+    """K2-K4 at the PPO shape and K2 at the rollout shape: each output held
+    against its plain twin (ATTN_TOL; K2's LSE within LSE_TOL), then CUDA
+    events around `iters` calls and the profiler's device time of the same
+    calls, beside the bound (work.py's `attention_bound_ms`), the plain
+    twins and SDPA (its forward for K2; for K3 and K4 its whole backward,
+    forward+backward less forward, which computes dq, dk and dv together).
+    One row per kernel and shape."""
+    work = bench_work()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    rows, max_err = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    for name, (b, h, lq, lk, d) in ATTN_SHAPES.items():
-        def rnd(length):
-            return torch.randn(b, h, length, d, device="cuda", generator=gen).bfloat16()
-        q, k, v, do = rnd(lq), rnd(lk), rnd(lk), rnd(lq)
-        route, (o, lse) = check_k2_route(torch, attention, name, q, k, v)
-        o_p, lse_p = attention.flash_attention_fwd_plain(q, k, v)
-        o_m, lse_m = attention.flash_attention_fwd_mma(q, k, v)
+    rows = []
+    for name, kinds in (("ppo", ("fwd", "dq", "dkv")), ("rollout", ("fwd",))):
+        b, h, lq, lk, d = ATTN_SHAPES[name]
+        iters = 20 if name == "rollout" else 10
+        q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+                       for n in (lq, lk, lk, lq))
+        o, lse = attention.flash_attention_fwd(q, k, v)
         delta = (do.float() * o.float()).sum(-1)
-        bwd_route, dq, (dk, dv) = check_bwd_route(torch, attention, name, q, k, v, do,
-                                                  lse, delta)
-        dq_p = attention.flash_attention_dq_plain(q, k, v, do, lse, delta)
-        dk_p, dv_p = attention.flash_attention_dkv_plain(q, k, v, do, lse, delta)
-        dq_m = attention.flash_attention_dq_mma(q, k, v, do, lse, delta)
-        dk_m, dv_m = attention.flash_attention_dkv_mma(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        lse_err = (lse - lse_p).abs().max().item()
-        errs = {}
-        for out, got, ref in (("out", o, o_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
-                              ("dv", dv, dv_p), ("out_mma", o_m, o_p), ("dq_mma", dq_m, dq_p),
-                              ("dk_mma", dk_m, dk_p), ("dv_mma", dv_m, dv_p)):
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            errs[out] = err
-            if not err <= ATTN_TOL * scale:
-                raise AssertionError(f"{out} at {name}: max|kernel-plain| {err} > "
-                                     f"{ATTN_TOL} * {scale}")
-        if not lse_err <= LSE_TOL or not (lse_m - lse_p).abs().max().item() <= LSE_TOL:
-            raise AssertionError(f"lse at {name}: {lse_err}")
-        max_err["fwd"] = max(max_err["fwd"], errs["out"])
-        max_err["dq"] = max(max_err["dq"], errs["dq"])
-        max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
-        log(f"K2-K4 {name} {(b, h, lq, lk, d)}: max|kernel-plain| out {errs['out']:.4g} "
-            f"lse {lse_err:.3g} dq {errs['dq']:.4g} dk {errs['dk']:.4g} dv {errs['dv']:.4g}; "
-            f"mma.sync kernels out {errs['out_mma']:.4g} dq {errs['dq_mma']:.4g} dk "
-            f"{errs['dk_mma']:.4g} dv {errs['dv_mma']:.4g}: ok")
-        row = dict(shape=[b, h, lq, lk, d], route=route, bwd_route=bwd_route, lse_err=lse_err,
-                   **errs)
-        if name in ("rollout", "ppo"):
-            row.update(attention_times(torch, attention, F, name, q, k, v, do, lse, delta))
-        rows[name] = row
-    return rows, max_err
+        args = {"fwd": (q, k, v), "dq": (q, k, v, do, lse, delta),
+                "dkv": (q, k, v, do, lse, delta)}
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = {"fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+                "fwd_bwd": lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do)}
+        lib = {key: (cuda_ms(fn, iters), profiled_ms(torch, fn, None, iters))
+               for key, fn in sdpa.items()}
+        lib["bwd"] = tuple(fb - f for fb, f in zip(lib["fwd_bwd"], lib["fwd"]))
+        route = attention.flash_fwd_route(d)  # "tma" at both shapes (D = 64)
+        flops, nbytes = work.attention_cost(b, h, lq, lk, d)   # lq == lk at both
+        for kind in kinds:
+            fn = getattr(attention, f"flash_attention_{kind}")
+            plain = getattr(attention, f"flash_attention_{kind}_plain")
+            got, want = fn(*args[kind]), plain(*args[kind])
+            if kind == "fwd" and not (got[1] - want[1]).abs().max().item() <= LSE_TOL:
+                raise AssertionError(f"K2's LSE at {name} is off its plain twin's")
+            got, want = {"fwd": (got[:1], want[:1]), "dq": ((got,), (want,)),
+                         "dkv": (got, want)}[kind]
+            err = max(held(f"{kind} {name}", a, p, ATTN_TOL) for a, p in zip(got, want))
+            key = K2_KERNELS[route] if kind == "fwd" else BWD_KERNELS[kind][route]
+            bound_ms = work.attention_bound_ms(b, h, lq, d, kind)
+            bound_by = "operations" if flops[kind] / work.PEAK_BF16_FLOPS \
+                >= nbytes[kind] / work.PEAK_BYTES else "bytes"
+            lib_ms, lib_dev_ms = lib["fwd" if kind == "fwd" else "bwd"]
+            r = with_shares(dict(
+                name=f"flash_attention_{kind}", shape=[b, h, lq, lk, d], call=name,
+                max_abs_err=err,
+                ms=cuda_ms(lambda: fn(*args[kind]), iters),
+                device_ms=profiled_ms(torch, lambda: fn(*args[kind]), key, iters),
+                plain_ms=cuda_ms(lambda: plain(*args[kind]), 5),
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                bound_ms=bound_ms, bound_by=bound_by))
+            rows.append(r)
+            log(f"{dict(fwd='K2', dq='K3', dkv='K4')[kind]} {name} "
+                f"{(b, h, lq, lk, d)}: events {r['ms']:.4f} ms ({r['bound_share']:.3f} of the "
+                f"bound), device {r['device_ms']:.4f} ms ({r['device_bound_share']:.3f}); "
+                f"SDPA {'forward' if kind == 'fwd' else 'backward'} events {lib_ms:.4f} "
+                f"device {lib_dev_ms:.4f}; plain {r['plain_ms']:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({bound_by}); max|kernel-plain| {err:.4g}")
+    return rows
 
 
-def attention_times(torch, attention, F, name, q, k, v, do, lse, delta):
-    """K2-K4 at one shape: CUDA events around `iters` calls (`ms`, and SDPA's
-    `sdpa_ms`) and the profiler's device time of the same calls (`device_ms`,
-    `sdpa_device_ms`); the mma.sync kernels by their test hooks (`fwd_mma`,
-    `dq_mma`, `dkv_mma`) under both; at the rollout shape the host's
-    microseconds per call of either forward; and the layout copies the policy
-    makes around K2 (q, k, v from (B,L,H,D) to (B,H,L,D), O back) and around
-    K3 and K4 (dO in, dq, dk, dv back), under both."""
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    iters = 20 if name == "rollout" else 10
-    calls = {
-        "fwd": lambda: attention.flash_attention_fwd(q, k, v),
-        "fwd_mma": lambda: attention.flash_attention_fwd_mma(q, k, v),
-        "dq": lambda: attention.flash_attention_dq(q, k, v, do, lse, delta),
-        "dkv": lambda: attention.flash_attention_dkv(q, k, v, do, lse, delta),
-        "dq_mma": lambda: attention.flash_attention_dq_mma(q, k, v, do, lse, delta),
-        "dkv_mma": lambda: attention.flash_attention_dkv_mma(q, k, v, do, lse, delta),
-    }
-    route = attention.flash_fwd_route(d)  # "tma" at both timed shapes (D = 64)
-    keys = {"fwd": K2_KERNELS[route], "fwd_mma": K2_KERNELS["mma"],
-            "dq": BWD_KERNELS["dq"][route], "dkv": BWD_KERNELS["dkv"][route],
-            "dq_mma": BWD_KERNELS["dq"]["mma"], "dkv_mma": BWD_KERNELS["dkv"]["mma"]}
-    res = {"ms": {kn: cuda_ms(fn, iters) for kn, fn in calls.items()},
-           "device_ms": {kn: profiled_ms(torch, fn, keys[kn], iters)
-                         for kn, fn in calls.items()}}
-    res["plain_ms"] = {
-        "fwd": cuda_ms(lambda: attention.flash_attention_fwd_plain(q, k, v), 5),
-        "dq": cuda_ms(lambda: attention.flash_attention_dq_plain(q, k, v, do, lse, delta), 5),
-        "dkv": cuda_ms(lambda: attention.flash_attention_dkv_plain(q, k, v, do, lse, delta),
-                       5),
-    }
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    sdpa_fb = lambda: torch.autograd.grad(  # noqa: E731
-        F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do)
-    ev = {"fwd": cuda_ms(sdpa, iters), "fwd_bwd": cuda_ms(sdpa_fb, iters)}
-    dev = {"fwd": profiled_ms(torch, sdpa, None, iters),
-           "fwd_bwd": profiled_ms(torch, sdpa_fb, None, iters)}
-    res["sdpa_ms"] = dict(ev, bwd=ev["fwd_bwd"] - ev["fwd"])
-    res["sdpa_device_ms"] = dict(dev, bwd=dev["fwd_bwd"] - dev["fwd"])
-    if name == "rollout":  # at the PPO shape the host waits on a full launch queue
-        res["host_us"] = {"fwd": host_us(torch, calls["fwd"]),
-                          "fwd_mma": host_us(torch, calls["fwd_mma"])}
-
-    x = torch.randn(b, lq, h, d, device="cuda").bfloat16()   # a projection's output
-    o = calls["fwd"]()[0]
-    # forward: q, k, v in, O out; backward (_FlashAttention.backward): dO in,
-    # dq, dk, dv out through the transposes' gradients
-    copies = {
-        "qkv_in": lambda: [x.transpose(1, 2).contiguous() for _ in range(3)],
-        "o_out": lambda: o.transpose(1, 2).reshape(b * lq, h * d),
-        "do_in": lambda: x.transpose(1, 2).contiguous(),
-        "dqkv_out": lambda: [o.transpose(1, 2).reshape(b * lq, h * d) for _ in range(3)],
-    }
-    res["layout_ms"] = {kn: cuda_ms(fn, iters) for kn, fn in copies.items()}
-    res["layout_device_ms"] = {kn: profiled_ms(torch, fn, None, iters)
-                               for kn, fn in copies.items()}
-    one = 2 * 2.0 * b * lq * h * d  # one bf16 tensor read and written
-    res["layout_bytes"] = {"qkv_in": 3 * one, "o_out": one, "do_in": one, "dqkv_out": 3 * one}
-
-    flops, nbytes = attention_cost(b, h, lq, lk, d)
-    res["bound_ms"], res["bound_by"], res["tflops"] = {}, {}, {}
-    for kname in ("fwd", "dq", "dkv"):
-        t_ops = flops[kname] / PEAK_BF16_FLOPS
-        t_bytes = nbytes[kname] / PEAK_BYTES
-        res["bound_ms"][kname] = max(t_ops, t_bytes) * 1e3
-        res["bound_by"][kname] = "operations" if t_ops >= t_bytes else "bytes"
-        res["tflops"][kname] = flops[kname] / res["ms"][kname] / 1e9
-    res["flops"], res["bytes"] = flops, nbytes
-    bound = res["bound_ms"]["fwd"]
-    ms, dv_ms = res["ms"], res["device_ms"]
-    log(f"K2-K4 {name} times (ms): " + ", ".join(
-        f"{kn} kernel {ms[kn]:.4f} [device {dv_ms[kn]:.4f}] / bound {res['bound_ms'][kn]:.4f} "
-        f"({res['bound_by'][kn]}) / plain {res['plain_ms'][kn]:.4f}"
-        for kn in ("fwd", "dq", "dkv")))
-    log(f"K2 {name}: events {ms['fwd']:.4f} ms ({bound / ms['fwd']:.3f} of the bound, "
-        f"{ms['fwd'] / ev['fwd']:.3f}x SDPA {ev['fwd']:.4f}), device {dv_ms['fwd']:.4f} ms "
-        f"({bound / dv_ms['fwd']:.3f} of the bound, {dv_ms['fwd'] / dev['fwd']:.3f}x SDPA "
-        f"{dev['fwd']:.4f}); mma.sync forward events {ms['fwd_mma']:.4f}, device "
-        f"{dv_ms['fwd_mma']:.4f}" + ("; host us per call {fwd:.2f} (mma.sync forward "
-                                      "{fwd_mma:.2f})".format(**res["host_us"])
-                                      if "host_us" in res else ""))
-    for kn in ("dq", "dkv"):
-        kb = res["bound_ms"][kn]
-        log(f"{'K3' if kn == 'dq' else 'K4'} {name}: events {ms[kn]:.4f} ms ({kb / ms[kn]:.3f} "
-            f"of the bound), device {dv_ms[kn]:.4f} ms ({kb / dv_ms[kn]:.3f} of the bound); "
-            f"mma.sync kernel events {ms[kn + '_mma']:.4f}, device {dv_ms[kn + '_mma']:.4f}")
-    pair, pair_dev = ms["dq"] + ms["dkv"], dv_ms["dq"] + dv_ms["dkv"]
-    sb, sbd = res["sdpa_ms"]["bwd"], res["sdpa_device_ms"]["bwd"]
-    log(f"K3+K4 {name}: events {pair:.4f} ms ({pair / sb:.3f}x SDPA backward {sb:.4f}), "
-        f"device {pair_dev:.4f} ({pair_dev / sbd:.3f}x SDPA backward {sbd:.4f}); mma.sync "
-        f"pair events {ms['dq_mma'] + ms['dkv_mma']:.4f}, device "
-        f"{dv_ms['dq_mma'] + dv_ms['dkv_mma']:.4f}")
-    lm, ld = res["layout_ms"], res["layout_device_ms"]
-    log(f"layout copies around K2-K4 at {name} (ms): q, k, v to (B,H,L,D) events "
-        f"{lm['qkv_in']:.4f} device {ld['qkv_in']:.4f}; O back events {lm['o_out']:.4f} "
-        f"device {ld['o_out']:.4f}; dO in events {lm['do_in']:.4f} device {ld['do_in']:.4f}; "
-        f"dq, dk, dv back events {lm['dqkv_out']:.4f} device {ld['dqkv_out']:.4f}")
-    return res
-
-
-def phase_unet(torch, conv, LocalNetUNet, flax_init_state):
-    """One full-width UNet call (batch 8, 256^2), kernel vs plain."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    nets = {impl: LocalNetUNet(dtype=torch.bfloat16, conv_impl=impl).cuda()
-            for impl in ("kernel", "plain")}
-    params = flax_init_state(nets["kernel"], torch.Generator().manual_seed(2))
-    for net in nets.values():
-        net.load_state_dict(params)
-    tgt = torch.rand(8, 256, 256, 3, device="cuda", generator=gen)
-    ctx = torch.rand(8, 2, 256, 256, 3, device="cuda", generator=gen)
-    with torch.inference_mode():
-        before = conv.fused_conv3x3.launches
-        y_k = nets["kernel"](tgt, ctx)
-        launches = conv.fused_conv3x3.launches - before
-        y_p = nets["plain"](tgt, ctx)
-    torch.cuda.synchronize()
-    d = (y_k - y_p).abs()
-    res = dict(max_abs=d.max().item(), mean_abs=d.mean().item(), launches=launches)
-    log(f"UNet full width, kernel vs plain: max|d| {res['max_abs']:.4g} "
-        f"mean|d| {res['mean_abs']:.4g} (limits {UNET_TOL}), K1 launches {launches}")
-    if not (torch.isfinite(y_k).all() and y_k.shape == (8, 256, 256, 3)):
-        raise AssertionError("UNet output not finite or of the wrong shape")
-    if res["max_abs"] > UNET_TOL["max_abs"] or res["mean_abs"] > UNET_TOL["mean_abs"]:
-        raise AssertionError("UNet through K1 disagrees with the plain UNet")
-    if launches != 3:
-        raise AssertionError(f"UNet launched K1 {launches} times, expected 3")
-    return res
-
-
-def phase_serving(torch, np, conv, attention, Config, rl, infer, synthetic):
-    """Serving at Config() widths, batch 8, S = T = 20."""
-    import dataclasses
-
-    c = Config()
-    b = 8
-    cfg = c.replace(rl=dataclasses.replace(c.rl, batch_size=b, vid_length=20,
-                                           time_steps=20))
-    s, t_steps = cfg.rl.vid_length, cfg.rl.time_steps
-    h, w = cfg.data.frame_size
-    t0 = time.time()
-    mods = rl.make_modules(cfg, device="cuda")
-    state = rl.init_state(cfg, mods, seed=0)
-    clips = np.stack([synthetic.synthetic_batch(j, s, h, w)[0] for j in range(b)])
-    u8 = np.clip(clips * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    log(f"serving set-up (modules, init, clips): {time.time() - t0:.2f} s")
-
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts(conv, attention)   # counts from here are the serving path's
-    times, outs = [], []
-    stream = infer.reconstruct_clips(cfg, state, mods, [u8] * (1 + SERVE_BATCHES))
-    t_prev = time.time()
-    for recon, actions in stream:
-        now = time.time()
-        times.append(now - t_prev)
-        outs.append((recon, actions))
-        t_prev = time.time()
-    counts = _counts(conv, attention)
-    launches = counts["K1"]
-    n = len(outs)
-    recon, actions = outs[-1]
-    if recon.shape != u8.shape or recon.dtype != np.uint8:
-        raise AssertionError(f"serving output {recon.shape} {recon.dtype}")
-    if actions.shape != (t_steps, b, 2):
-        raise AssertionError(f"actions shape {actions.shape}")
-    tgt = (np.arange(t_steps) % s)[:, None, None]
-    if not ((actions >= 0) & (actions < s) & (actions != tgt)).all():
-        raise AssertionError("actions out of [0, S) or equal to the target")
-    if np.array_equal(recon, u8):
-        raise AssertionError("serving wrote no frame")
-    if any(not np.array_equal(o[0], recon) for o in outs):
-        raise AssertionError("greedy serving is not deterministic across batches")
-    if counts != {"K1": 60 * n, "K2": 0, "K3": 0, "K4": 0}:
-        raise AssertionError(f"serving launched {counts} over {n} batches, "
-                             f"expected K1 {60 * n} and no K2-K4")
-    sec = sorted(times[1:])
-    sec_per_batch = sec[len(sec) // 2]
-    res = dict(batch=b, vid_length=s, time_steps=t_steps, frame=[h, w],
-               batches=n, k1_launches=launches, k1_launches_per_batch=launches // n,
-               warmup_s=times[0], sec_per_batch_each=times[1:],
-               sec_per_batch=sec_per_batch,
-               frames_per_sec=b * s / sec_per_batch,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"serving: {res['frames_per_sec']:.1f} frames/s, {sec_per_batch:.4f} s/batch "
-        f"(median of {len(sec)}; warm-up {times[0]:.2f} s), K1 launches "
-        f"{launches} = 60 x {n}, peak {res['peak_mem_gb']:.2f} GB")
-    return res, mods, state, cfg, u8
-
-
-def phase_profile(torch, infer, cfg, state, mods, u8, out_dir):
-    """One serving batch under torch.profiler: device time by kernel, K1's
-    share of it, and the device's idle share of the batch's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in infer.reconstruct_clips(cfg, state, mods, [u8]):
-            pass
-        wall_ms = (time.time() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, "serving_trace.json"))
-    rows, busy_ms = _profile_rows(torch, prof.key_averages())
-    if busy_ms == 0:
-        log("profile: the profiler saw no device time (not measured)")
-        return dict(wall_ms=wall_ms, device_ms=None)
-    k1_ms = sum(r["ms"] for r in rows if "conv3x3_kernel" in r["kernel"])
-    res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-               k1_ms=k1_ms, k1_share=k1_ms / busy_ms, top=rows[:15])
-    log(f"profile of one serving batch: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}), K1 {k1_ms:.2f} ms "
-        f"({res['k1_share']:.3f} of device time)")
-    for r in rows[:15]:
-        log(f"  {r['ms']:9.3f} ms  x{r['count']:<5d} {r['kernel']}")
-    return res
-
-
-def phase_rollout_rewards(torch, np, conv, rl, synthetic, mods, state, cfg):
-    """One greedy rollout with the LPIPS reward path, batch 2."""
-    import dataclasses
-
-    b = 2
-    cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, batch_size=b, greedy=True))
-    s = cfg.rl.vid_length
-    h, w = cfg.data.frame_size
-    data = [synthetic.synthetic_batch(100 + j, s, h, w) for j in range(b)]
-    v = torch.from_numpy(np.stack([d[0] for d in data])).cuda()
-    o = torch.from_numpy(np.stack([d[1] for d in data])).cuda()
-    before = conv.fused_conv3x3.launches
-    t0 = time.time()
-    out = rl.rollout(state, mods, cfg, v, o, rewards=True)
-    torch.cuda.synchronize()
-    secs = time.time() - t0
-    metrics = {k: float(val) for k, val in out.metrics.items()}
-    launches = conv.fused_conv3x3.launches - before
-    log(f"rollout with rewards (batch {b}): {secs:.2f} s, K1 launches {launches}, "
-        f"metrics {metrics}")
-    if not all(math.isfinite(val) for val in metrics.values()):
-        raise AssertionError("non-finite Episode metric")
-    if not torch.isfinite(out.traj.rtgs).all():
-        raise AssertionError("non-finite rewards-to-go")
-    return dict(batch=b, seconds=secs, k1_launches=launches, metrics=metrics)
+def kernels_line(k1, k1_bwd, attn, lookup):
+    """The {"kernels": [...]} line, one row per kernel and timed shape: K1
+    per serving UNet call and its backward per pretrain UNet call, K2-K4
+    per call at each timed shape, the lookup per call at RAFT's main
+    shape."""
+    return [
+        summed("fused_conv3x3", "one UNet call: conv3 + conv4 + conv5 at batch 8, 256^2; "
+               "library: cuDNN conv2d + bias + ReLU", k1),
+        summed("fused_conv3x3_backward", "one pretrain UNet call: conv3 + conv4 + conv5 at "
+               "batch 24, 256^2; plain: autograd through the f32 plain version; library: "
+               "cuDNN forward+backward", k1_bwd),
+        *(dict(r, per=f"one call at the {r['call']} shape; library: SDPA "
+               + ("forward" if r["name"] == "flash_attention_fwd" else
+                  "backward (forward+backward less forward: dq, dk and dv together)"))
+          for r in attn),
+        dict(lookup, name="corr_lookup", per="one call at RAFT's main shape (128 pairs, "
+             "32 x 32 positions, levels 32/16/8/4), bf16 out"),
+    ]
 
 
 def config5(Config):
@@ -981,104 +611,51 @@ def _zero_counts(conv, attention):
         fn.launches = 0
 
 
-def phase_policy(torch, attention, cfg, flax_init_state):
-    """Config 5's attention actor and critic at full width, batch 8: the
-    kernel path (K2-K4) against the plain attention path (attn_impl="jnp")
-    on the same bf16 params: masked logits, values, and the gradient of a
-    PPO-style logprob loss."""
-    from rovr_torch.models.policy_attention import AttentionContextPolicy
-
-    m = cfg.model
-    kw = dict(num_frames=m.pn2_num_frames, feature_dim=m.feature_dim,
-              hidden_dim=m.attn_hidden_dim, num_heads=m.attn_heads,
-              depth=m.attn_depth, patch_tokens=m.attn_patch_tokens,
-              temperature=m.pn2_temperature, dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    res = {}
-    for critic in (False, True):
-        pols = {impl: AttentionContextPolicy(**kw, attn_impl=impl, is_critic=critic).cuda()
-                for impl in ("auto", "jnp")}
-        params = flax_init_state(pols["auto"], torch.Generator().manual_seed(5 + critic))
-        b, s = 8, m.pn2_num_frames
-        feats = torch.randn(b, s, m.feature_dim, device="cuda", generator=gen)
-        tgt = torch.arange(b, device="cuda") * 7 % s
-        noise = -torch.log(-torch.log(torch.rand(b, s, device="cuda", generator=gen)
-                                      .clamp_min(1e-20)))
-        acs = torch.stack([(tgt + 1) % s, (tgt + 2) % s], 1)
-        outs, grads = {}, {}
-        for impl, pol in pols.items():
-            pol.load_state_dict(params)
-            before = attention.flash_attention_fwd.launches
-            if critic:
-                y = pol.value(feats, tgt)
-                loss = (y ** 2).mean()
-            else:
-                y = pol.masked_logits(feats, tgt)
-                loss = -pol.logprob(feats, tgt, acs, gumbel=noise).mean()
-            named = list(pol.named_parameters())
-            g = torch.autograd.grad(loss, [p for _, p in named])
-            outs[impl] = y.detach().float()
-            grads[impl] = torch.cat([x.float().flatten() for x in g])
-            if (attention.flash_attention_fwd.launches > before) != (impl == "auto"):
-                raise AssertionError(f"policy impl={impl} took the wrong attention path")
-        torch.cuda.synchronize()
-        err = (outs["auto"] - outs["jnp"]).abs().max().item()
-        scale = outs["jnp"].abs().max().item()
-        gerr = ((grads["auto"] - grads["jnp"]).norm() / grads["jnp"].norm()).item()
-        name = "critic value" if critic else "actor logits"
-        log(f"config-5 policy {name}, K2-K4 vs plain attention: max|d| {err:.4g} "
-            f"(scale {scale:.4g}), gradient relative error {gerr:.4g} "
-            f"(limit {POLICY_TOL})")
-        if not (torch.isfinite(outs["auto"]).all() and err <= POLICY_TOL * scale
-                and gerr <= POLICY_TOL):
-            raise AssertionError(f"config-5 {name} through K2-K4 disagrees with plain")
-        res["critic" if critic else "actor"] = dict(max_abs=err, scale=scale,
-                                                    grad_rel=gerr)
-    return res
-
-
 def config5_clips(torch, np, synthetic, cfg):
     """uint8 (corrupted, original) clips of config 5, batch 8, on the card,
-    their float masks, and the host seconds the synthetic source took."""
+    and their float masks."""
     b, s = cfg.rl.batch_size, cfg.rl.vid_length
     h, w = cfg.data.frame_size
-    t0 = time.time()
     data = synthetic.synthetic_clips(200, 0, b, s, h, w)
-    source_s = time.time() - t0
     u8 = [np.clip(data[i] * 255.0 + 0.5, 0, 255).astype(np.uint8) for i in (0, 1)]
     masks = torch.from_numpy(data[2]).cuda()
-    return u8[0], [torch.from_numpy(x).cuda() for x in u8], masks, source_s
+    return u8[0], [torch.from_numpy(x).cuda() for x in u8], masks
 
 
-def phase_serving5(torch, np, conv, attention, infer, cfg, state, mods, u8):
-    """Config-5 serving: greedy, batch 8, S = T = 64; 128 K2 and 192 K1
-    launches per batch."""
-    n = 2
-    _zero_counts(conv, attention)   # counts from here are this path's
-    times, outs = [], []
-    t_prev = time.time()
-    for recon, actions in infer.reconstruct_clips(cfg, state, mods, [u8] * n):
-        times.append(time.time() - t_prev)
-        outs.append((recon, actions))
-        t_prev = time.time()
-    counts = _counts(conv, attention)
-    recon, actions = outs[-1]
-    b, s = u8.shape[:2]
-    if recon.shape != u8.shape or recon.dtype != np.uint8 or actions.shape != (s, b, 2):
-        raise AssertionError(f"config-5 serving output {recon.shape} {actions.shape}")
-    tgt = (np.arange(s) % s)[:, None, None]
-    if not ((actions >= 0) & (actions < s) & (actions != tgt)).all():
-        raise AssertionError("config-5 actions out of [0, S) or equal to the target")
-    if np.array_equal(recon, u8) or not np.array_equal(outs[0][0], recon):
-        raise AssertionError("config-5 serving wrote nothing or is not deterministic")
-    want = {"K1": 192 * n, "K2": 128 * n, "K3": 0, "K4": 0}
-    if counts != want:
-        raise AssertionError(f"config-5 serving launches {counts}, expected {want}")
-    res = dict(batches=n, launches=counts, warmup_s=times[0], sec_per_batch=times[-1],
-               frames_per_sec=b * s / times[-1])
-    log(f"config-5 serving: {res['frames_per_sec']:.1f} frames/s, "
-        f"{times[-1]:.4f} s/batch (warm-up {times[0]:.2f} s), launches {counts} "
-        f"= (K1 192, K2 128) x {n}")
+def phase_serve_counts(torch, np, conv, attention, Config, rl, infer, synthetic, cfg5, u8_5):
+    """One greedy served batch (`infer.reconstruct_clips`) at Config() (batch
+    8, S = T = 20) and one at config 5 (phase 12's clips): uint8 frames of
+    the input's shape, some written, actions in [0, S) (off the target where
+    the canvas policy masks it out; the attention policy only zeroes its
+    logit), and exactly 60 K1, or 192 K1 and 128 K2, and no K3 or K4."""
+    import dataclasses
+
+    c = Config()
+    cfg = c.replace(rl=dataclasses.replace(c.rl, batch_size=8, vid_length=20, time_steps=20))
+    h, w = cfg.data.frame_size
+    clips = np.stack([synthetic.synthetic_batch(j, 20, h, w)[0] for j in range(8)])
+    u8 = np.clip(clips * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    res = {}
+    for name, cfg, u8, k1, k2 in (("config", cfg, u8, 60, 0), ("config5", cfg5, u8_5, 192, 128)):
+        mods = rl.make_modules(cfg, device="cuda")
+        state = rl.init_state(cfg, mods, seed=0)
+        _zero_counts(conv, attention)   # counts from here are this batch's
+        ((recon, actions),) = infer.reconstruct_clips(cfg, state, mods, [u8])
+        counts = _counts(conv, attention)
+        (b, s), t = u8.shape[:2], cfg.rl.time_steps
+        tgt = (np.arange(t) % s)[:, None, None]
+        off = (actions != tgt) | (cfg.rl.context_policy == "attention")
+        if recon.shape != u8.shape or recon.dtype != np.uint8 or actions.shape != (t, b, 2) \
+                or np.array_equal(recon, u8) \
+                or not ((actions >= 0) & (actions < s) & off).all():
+            raise AssertionError(f"{name} serving: frames {recon.shape} {recon.dtype}, "
+                                 f"actions {actions.shape}")
+        if counts != {"K1": k1, "K2": k2, "K3": 0, "K4": 0}:
+            raise AssertionError(f"{name} serving launched {counts} in one batch, expected "
+                                 f"K1 {k1}, K2 {k2} and no K3 or K4")
+        res[name] = dict(batch=b, vid_length=s, launches=counts)
+        log(f"{name} serving: one batch of {b} x {s} frames, launches {counts}")
+        del mods, state
     return res
 
 
@@ -1091,122 +668,6 @@ def _finite_metrics(metrics):
 
 def _moved(new, old):
     return max((new[k].float() - old[k].float()).abs().max().item() for k in old)
-
-
-def phase_train5(torch, conv, attention, rl, cfg, state, mods, video, org):
-    """Config-5 train steps: one warm-up, then TRAIN_STEPS timed steps."""
-    per_step = TRAIN_LAUNCHES
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts(conv, attention)   # counts from here are the train path's
-    times, steps = [], []
-    for i in range(1 + TRAIN_STEPS):
-        before = _counts(conv, attention)
-        t0 = time.time()
-        new, metrics, recon = rl.train_step(state, mods, cfg, video, org, generator=gen)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-        after = _counts(conv, attention)
-        step_counts = {k: after[k] - before[k] for k in after}
-        if step_counts != per_step:
-            raise AssertionError(f"train step {i} launched {step_counts}, "
-                                 f"expected {per_step}")
-        m = _finite_metrics(metrics)
-        moved = {f: _moved(getattr(new, f"{f}_params"), getattr(state, f"{f}_params"))
-                 for f in ("actor2", "critic2")}
-        if not all(v > 0 and math.isfinite(v) for v in moved.values()):
-            raise AssertionError(f"train step {i} did not move the params: {moved}")
-        if recon.shape != video.shape or not torch.isfinite(recon).all():
-            raise AssertionError("train step reconstruction not finite / wrong shape")
-        steps.append(dict(seconds=times[-1], metrics=m, moved=moved))
-        log(f"config-5 train step {i}: {times[-1]:.3f} s, launches {step_counts}, "
-            f"metrics {m}, max|param change| {moved}")
-        state = new
-    counts = _counts(conv, attention)
-    b, s = video.shape[:2]
-    sec = sorted(times[1:])[len(times[1:]) // 2]
-    res = dict(batch=b, vid_length=s, time_steps=cfg.rl.time_steps, steps=steps,
-               launches=counts, launches_per_step=per_step, warmup_s=times[0],
-               sec_per_step_each=times[1:], sec_per_step=sec,
-               frames_per_sec=b * cfg.rl.time_steps / sec,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, state_step=state.step)
-    log(f"config-5 train: {sec:.4f} s/step (median of {len(times) - 1}; warm-up "
-        f"{times[0]:.2f} s), {res['frames_per_sec']:.1f} frames/s, launches {counts} "
-        f"over {len(times)} steps, peak {res['peak_mem_gb']:.2f} GB")
-    return res, state
-
-
-def phase_split_train(torch, rl, cfg, state, mods, video, org):
-    """Host time of the train step's parts, one step taken piece by piece:
-    the episode init alone, the rollout (init included), the PPO update."""
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    v, o = (x.float() * (1.0 / 255.0) for x in (video, org))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    rl.episode_init(state, mods, cfg, v, o)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    out = rl.rollout(state, mods, cfg, v, o, gen)
-    torch.cuda.synchronize()
-    t2 = time.time()
-    rl.ppo_update(state, mods, cfg, out.traj, gen)
-    torch.cuda.synchronize()
-    t3 = time.time()
-    res = dict(episode_init_s=t1 - t0, rollout_s=t2 - t1, ppo_s=t3 - t2)
-    log(f"config-5 train step in parts: episode init {res['episode_init_s']:.3f} s, "
-        f"rollout (init included) {res['rollout_s']:.3f} s, PPO update "
-        f"{res['ppo_s']:.3f} s")
-    return res
-
-
-def phase_profile_train(torch, rl, cfg, state, mods, video, org):
-    """One config-5 train step under torch.profiler: device time by kernel,
-    each port kernel's share, the device's idle share of the step. (Its
-    chrome trace is too large to keep; the table goes to the record.)"""
-    from torch.profiler import ProfilerActivity, profile
-
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        rl.train_step(state, mods, cfg, video, org, generator=gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    avgs = prof.key_averages()
-    rows, busy_ms = _profile_rows(torch, avgs)
-    if busy_ms == 0:
-        log("train profile: the profiler saw no device time (not measured)")
-        return dict(wall_ms=wall_ms, device_ms=None)
-    init = _range_times(torch, avgs, ("rovr/episode_init",)).get("rovr/episode_init")
-    k2 = {route: sum(r["count"] for r in rows if key in r["kernel"])
-          for route, key in K2_KERNELS.items()}
-    by_kernel = {kid: {route: sum(r["count"] for r in rows if key in r["kernel"])
-                       for route, key in names.items()}
-                 for kid, names in (("K2", K2_KERNELS), ("K3", BWD_KERNELS["dq"]),
-                                    ("K4", BWD_KERNELS["dkv"]))}
-    want = {"K2": 150, "K3": 20, "K4": 20}  # D = 64: every launch is the TMA kernel
-    if any(by_kernel[kid] != {"tma": n, "mma": 0} for kid, n in want.items()):
-        raise AssertionError(f"K2-K4 launches of the config-5 train step by kernel: "
-                             f"{by_kernel}, expected {want} on the TMA route")
-    ours = {name: sum(r["ms"] for r in rows if any(key in r["kernel"] for key in keys))
-            for name, keys in (("K1", ("conv3x3_kernel",)), ("K2", tuple(K2_KERNELS.values())),
-                               ("K3", tuple(BWD_KERNELS["dq"].values())),
-                               ("K4", tuple(BWD_KERNELS["dkv"].values())))}
-    if init is None or not init["device_ms"]:
-        raise AssertionError(f"the train step's profile has no device time under "
-                             f"rovr/episode_init: {init}")
-    res = dict(wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-               kernel_ms=ours, launches_by_kernel=by_kernel, episode_init=init,
-               top=rows[:25])
-    log(f"profile of one config-5 train step: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share {res['idle_share']:.3f}); port kernels (ms per step) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in ours.items())
-        + f"; rovr/episode_init {init['device_ms']:.2f} ms of device time "
-        f"({init['device_ms'] / busy_ms:.3f} of busy; host {init['host_ms']:.1f} ms)"
-        + f"; launches by kernel {by_kernel}")
-    for r in rows[:25]:
-        log(f"  {r['ms']:9.3f} ms  x{r['count']:<6d} {r['kernel']}")
-    return res
 
 
 class ClipSource:
@@ -1338,55 +799,6 @@ def phase_rl_run5(torch, conv, attention, rl, checkpoint, cfg, source, out_dir):
     return res, state
 
 
-def phase_spatio5(torch, conv, attention, rl, cfg, video, org, masks):
-    """One config-5 train step with the RAFT spatio signal (log_spatio)."""
-    import dataclasses
-
-    from rovr_torch.models.raft import pairwise_flows
-    from rovr_torch.ops import corr
-
-    cfg = cfg.replace(rl=dataclasses.replace(cfg.rl, log_spatio=True))
-    mods = rl.make_modules(cfg, device=video.device)
-    state = rl.init_state(cfg, mods, seed=0)
-    gen = torch.Generator(device=video.device).manual_seed(12)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts(conv, attention)   # counts from here are this step's
-    lookups, calls = corr.corr_lookup.launches, pairwise_flows.calls
-    t0 = time.time()
-    _, metrics, recon = rl.train_step(state, mods, cfg, video, org, generator=gen,
-                                      masks=masks)
-    torch.cuda.synchronize()
-    step_s = time.time() - t0
-    counts = _counts(conv, attention)
-    lookups = corr.corr_lookup.launches - lookups
-    calls = pairwise_flows.calls - calls
-    m = _finite_metrics(metrics)
-    if counts != TRAIN_LAUNCHES or "Episode/spatio" not in m:
-        raise AssertionError(f"spatio train step: launches {counts}, metrics {sorted(m)}")
-    if lookups != mods.raft.iters * calls:
-        raise AssertionError(f"spatio train step: {lookups} lookup launches for {calls} "
-                             f"RAFT calls of {mods.raft.iters} iterations")
-    v, o = (x.float() * (1.0 / 255.0) for x in (video, org))
-
-    def spatio():  # the step's three RAFT passes (recon, original, corrupted)
-        return rl._spatio(state, mods, cfg, recon, o, v)
-
-    raft_ms = cuda_ms(spatio, iters=1, warmup=0)
-    raft_dev_ms = profiled_ms(torch, spatio, None, iters=1)
-    res = dict(step_s=step_s, launches=counts, metrics=m, raft_ms=raft_ms,
-               raft_device_ms=raft_dev_ms, flow_size=rl.resolved_flow_size(cfg),
-               lookup_launches=lookups, raft_calls=calls,
-               pairs=3 * video.shape[0] * (video.shape[1] - 1),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"config-5 train step with log_spatio: {step_s:.3f} s, launches {counts}, "
-        f"{lookups} lookup launches over {calls} RAFT calls, "
-        f"Episode/spatio {m['Episode/spatio']:.4f}; RAFT's three passes ({res['pairs']} "
-        f"pairs at {res['flow_size']}^2) {raft_ms:.1f} ms events, {raft_dev_ms:.1f} ms "
-        f"device; peak {res['peak_mem_gb']:.2f} GB")
-    return res
-
-
 def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_dir):
     """One evaluate.run batch and one run_ci batch (2 draws) at config 5;
     one eval_step under torch.profiler, RAFT's device time beside it."""
@@ -1394,6 +806,7 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     from torch.profiler import ProfilerActivity, profile
 
     from rovr_torch.models.raft import pairwise_flows, total_flow_magnitude
+    from rovr_torch.ops import corr
 
     run_root = os.path.join(out_dir, "smoke_eval")
     shutil.rmtree(run_root, ignore_errors=True)
@@ -1403,11 +816,13 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(conv, attention)   # counts from here are evaluate.run's
+    lookups, calls = corr.corr_lookup.launches, pairwise_flows.calls
     t0 = time.time()
     means = evaluate.run(cfg, num_videos=b, state=state, flow_size=FLOW_SIZE, source=source,
                          device=dev)
     run_s = time.time() - t0
     counts = _counts(conv, attention)
+    lookups, calls = corr.corr_lookup.launches - lookups, pairwise_flows.calls - calls
     # 3 K1 per UNet call (agentic and sequential each step), K2 per policy
     # act per encoder block: 384 and 128 at config 5
     want = {"K1": 3 * 2 * t_steps, "K2": depth * t_steps, "K3": 0, "K4": 0}
@@ -1421,6 +836,9 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     peak_run = torch.cuda.max_memory_allocated() / 1e9
 
     mods = evaluate.make_modules(cfg, device=dev)
+    if not calls or lookups != mods.raft.iters * calls:   # one lookup a RAFT iteration
+        raise AssertionError(f"evaluate.run: {lookups} lookup launches for {calls} RAFT "
+                             f"calls of {mods.raft.iters} iterations")
     raft = evaluate.init_raft_params(mods, 0)
     batch = source.next(0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1453,7 +871,8 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
     g = ci["per_clip"]["greedy"]
     if g["psnr_agentic"] == g["psnr_sequential"]:
         raise AssertionError("run_ci: the sequential baseline equals the agentic output")
-    res = dict(run_s=run_s, launches=counts, means=means, peak_mem_gb=peak_run,
+    res = dict(run_s=run_s, launches=counts, lookup_launches=lookups, raft_calls=calls,
+               means=means, peak_mem_gb=peak_run,
                eval_step_wall_ms=step_wall_ms, eval_step_device_ms=busy_ms,
                eval_step_idle_share=(1 - busy_ms / step_wall_ms) if busy_ms else None,
                raft_device_ms=raft_ms, raft_share=(raft_ms / busy_ms) if busy_ms else None,
@@ -1461,7 +880,7 @@ def phase_eval5(torch, conv, attention, evaluate, rl, cfg, state, source, out_di
                ci_s=ci_s, ci_launches=ci_counts, ci_summary=ci["summary"],
                ci_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"config-5 evaluate.run (1 batch of {b}): {run_s:.2f} s, launches {counts}, "
-        f"peak {peak_run:.2f} GB; means " + ", ".join(
+        f"{lookups} lookups over {calls} RAFT calls, peak {peak_run:.2f} GB; means " + ", ".join(
             f"{k.split('/')[-1]} {v:.4f}" for k, v in sorted(means.items())))
     log(f"config-5 eval_step under the profiler: wall {step_wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms, RAFT (4 passes x {b * (cfg.rl.vid_length - 1)} pairs) "
@@ -1487,7 +906,7 @@ def config5_pi1(cfg):
     return cfg.replace(rl=dataclasses.replace(cfg.rl, use_policy1=True, ppo_policy1=True))
 
 
-def phase_train5_pi1(torch, conv, attention, rl, cfg, video, org, masks, train5):
+def phase_train5_pi1(torch, conv, attention, rl, cfg, video, org, masks):
     """Config-5 train steps with π₁ (use_policy1, ppo_policy1): one warm-up,
     then TRAIN_STEPS timed steps, each launching exactly what a step
     without π₁ does; then one step under torch.profiler, π₁'s ranges'
@@ -1585,12 +1004,10 @@ def phase_train5_pi1(torch, conv, attention, rl, cfg, video, org, masks, train5)
     res = dict(batch=b, vid_length=s_frames, steps=steps, warmup_s=times[0],
                sec_per_step_each=times[1:], sec_per_step=sec,
                frames_per_sec=b * cfg.rl.time_steps / sec,
-               sec_per_step_without_pi1=train5["sec_per_step"],
                launches_per_step=TRAIN_LAUNCHES, peak_mem_gb=peak, profile=prof_res,
                state_step=state.step)
     log(f"config-5 π₁ train: {sec:.4f} s/step (median of {TRAIN_STEPS}; warm-up "
-        f"{times[0]:.2f} s) against {train5['sec_per_step']:.4f} s without π₁ (phase 10, "
-        f"this run); launches {TRAIN_LAUNCHES} per step; peak {peak:.2f} GB")
+        f"{times[0]:.2f} s); launches {TRAIN_LAUNCHES} per step; peak {peak:.2f} GB")
     return res
 
 
@@ -2865,13 +2282,12 @@ def config5_moe(cfg5):
                                                   attn_moe_capacity=1.25))
 
 
-def phase_train5_moe(torch, conv, attention, rl, cfg5, video, org, train5):
+def phase_train5_moe(torch, conv, attention, rl, cfg5, video, org):
     """Config-5 train steps with the MoE FFN in both encoder blocks (4
     experts, capacity 1.25): a warm-up, then MOE_TRAIN_STEPS timed steps;
     each must launch exactly what the dense step launches (192 K1, 150 K2,
     20 K3, 20 K4), give finite metrics and move the actor's and critic's
-    parameters, the experts' w1 among them; sec/step and peak memory beside
-    the dense step's (phase 10)."""
+    parameters, the experts' w1 among them; sec/step and peak memory."""
     cfg = config5_moe(cfg5)
     mods = rl.make_modules(cfg, device="cuda")
     state = rl.init_state(cfg, mods, seed=0)
@@ -2909,11 +2325,10 @@ def phase_train5_moe(torch, conv, attention, rl, cfg5, video, org, train5):
     sec = sorted(times[1:])[len(times[1:]) // 2]
     res = dict(experts=MOE_EXPERTS, capacity=1.25, launches=_counts(conv, attention),
                launches_per_step=TRAIN_LAUNCHES, warmup_s=times[0], sec_per_step_each=times[1:],
-               sec_per_step=sec, dense_sec_per_step=train5["sec_per_step"],
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               dense_peak_mem_gb=train5["peak_mem_gb"], moe_aux=aux, metrics=m)
-    log(f"config-5 MoE train: {sec:.4f} s/step (dense {train5['sec_per_step']:.4f}), peak "
-        f"{res['peak_mem_gb']:.2f} GB (dense {train5['peak_mem_gb']:.2f}), moe_aux {aux}")
+               sec_per_step=sec, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               moe_aux=aux, metrics=m)
+    log(f"config-5 MoE train: {sec:.4f} s/step, peak {res['peak_mem_gb']:.2f} GB, "
+        f"moe_aux {aux}")
     return res
 
 
@@ -3076,7 +2491,7 @@ def ring_vs_flash(torch, attention, mesh):
     same bf16 values): out and dq, dk, dv of sum(out * w), each within
     ATTN_TOL of max|exact|. The flash op (K2-K4, which round P and dS to
     bf16 as their plain twins do) on the same inputs is recorded beside it,
-    not held here (phase 3 holds it to its twins)."""
+    not held here (tests/test_torch_cuda.py holds it to its twins)."""
     from rovr_torch.models.attention import attend_plain
     from rovr_torch.parallel.ring_attention import ring_attend
 
@@ -3438,10 +2853,9 @@ def _profile_pipelined(torch, rl, profiling, fn, state, mods, cfg, batches, out_
     return res
 
 
-def phase_pipelined5(torch, conv, attention, rl, profiling, cfg5, video, org, out_dir,
-                     profile5=None):
+def phase_pipelined5(torch, conv, attention, rl, profiling, cfg5, video, org, out_dir):
     """Config 5's double-buffered step, `rl.train_step_pipelined` (batch 8,
-    S = T = 64, the attention policy, phase 9's clips as float): a chain of
+    S = T = 64, the attention policy, phase 12's clips as float): a chain of
     PIPE_CHAIN steps, each on the previous `next_init`, against as many
     `train_step`s with the same generator (bit for bit, or a gap printed and
     held at phase 28's bounds) and each `next_init` against `episode_init`,
@@ -3544,12 +2958,9 @@ def phase_pipelined5(torch, conv, attention, rl, profiling, cfg5, video, org, ou
     section_s["arms"] = time.time() - t_section
     t_section = time.time()
 
-    # one pipelined step under the profiler (phase 11 profiles train_step)
+    # one pipelined step under the profiler
     prof = _profile_pipelined(torch, rl, profiling, steps["pipelined"], state, mods, cfg5,
                               batches, out_dir)
-    phase11 = (profile5 or {}).get("idle_share")
-    log(f"(phase 11's train_step idle share: "
-        f"{'not measured here' if phase11 is None else f'{phase11:.3f}'})")
     section_s["profile"] = time.time() - t_section
     log(f"phase 30 sections (host seconds): {section_s}")
     return dict(chain=chain, bitwise=all(c["bitwise"] for c in chain), timing=timing,
@@ -3577,7 +2988,7 @@ def _grid_rank(_mesh, out_dir, grid, timing):
 
     mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
     cfg5 = config5(Config)
-    _, (video, org), masks, _ = config5_clips(torch, np, synthetic, cfg5)
+    _, (video, org), masks = config5_clips(torch, np, synthetic, cfg5)
     gen = torch.Generator(device="cuda").manual_seed(29)
     b, s, t = video.shape[0], video.shape[1], cfg5.rl.time_steps
     noise = (rl.gumbel_noise((t, b, s), gen, "cuda"),
@@ -3659,7 +3070,6 @@ def main() -> int:
     from rovr_torch.config import Config
     from rovr_torch.data import corruption, dataset, device_synthetic, native_loader, synthetic
     from rovr_torch.models.layers import flax_init_state
-    from rovr_torch.models.local_net import LocalNetUNet
     from rovr_torch.models import raft
     from rovr_torch.ops import attention, conv, corr, cuda_build
     from rovr_torch.train import evaluate, imitation, pipeline, pretrain_local, rl
@@ -3706,45 +3116,25 @@ def main() -> int:
         phase_s[fn.__name__] = time.time() - t
         return out
 
-    rows, k1_err = timed(phase_k1, torch, conv, F)
-    k1_bwd, k1_bwd_err = timed(phase_k1_backward, torch, conv, F)
-    attn, attn_err = timed(phase_attention, torch, attention, F)
+    k1 = timed(phase_k1, torch, conv, F)
+    k1_bwd = timed(phase_k1_backward, torch, conv, F)
+    attn = timed(phase_attention, torch, attention, F)
     lookup = timed(phase_corr_lookup, torch, corr, raft)
-    unet = timed(phase_unet, torch, conv, LocalNetUNet, flax_init_state)
-    serving, mods, state, cfg, u8 = timed(phase_serving, torch, np, conv, attention, Config,
-                                          rl, infer, synthetic)
     out_dir = os.path.join(here, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     # a phase that fails leaves its run's checkpoints (hundreds of MB at
     # config 5); drop them at exit too, so a failed run keeps only its logs
     atexit.register(lambda: [shutil.rmtree(ck, ignore_errors=True) for ck in glob.glob(
         os.path.join(out_dir, "**", "checkpoints"), recursive=True)])
-    profile = timed(phase_profile, torch, infer, cfg, state, mods, u8, out_dir)
-    rewards = timed(phase_rollout_rewards, torch, np, conv, rl, synthetic, mods, state, cfg)
-    del mods, state
-    torch.cuda.empty_cache()
 
     cfg5 = config5(Config)
-    policy = timed(phase_policy, torch, attention, cfg5, flax_init_state)
-    t0 = time.time()
-    mods5 = rl.make_modules(cfg5, device="cuda")
-    state5 = rl.init_state(cfg5, mods5, seed=0)
-    u8_5, (video5, org5), masks5, source5_s = config5_clips(torch, np, synthetic, cfg5)
-    setup5_s = time.time() - t0
-    log(f"config-5 set-up (modules, init, 8 x 64 clips): {setup5_s:.2f} s, of which the "
-        f"host synthetic source {source5_s:.2f} s for the batch of clips")
-    serving5 = timed(phase_serving5, torch, np, conv, attention, infer, cfg5, state5, mods5, u8_5)
-    train5, state5 = timed(phase_train5, torch, conv, attention, rl, cfg5, state5, mods5,
-                           video5, org5)
-    split5 = timed(phase_split_train, torch, rl, cfg5, state5, mods5, video5, org5)
-    profile5 = timed(phase_profile_train, torch, rl, cfg5, state5, mods5, video5, org5)
-    del mods5
-    torch.cuda.empty_cache()
+    u8_5, (video5, org5), masks5 = config5_clips(torch, np, synthetic, cfg5)
     source = ClipSource(video5, org5, masks5)
+    serve = timed(phase_serve_counts, torch, np, conv, attention, Config, rl, infer, synthetic,
+                  cfg5, u8_5)
+    torch.cuda.empty_cache()
     rl_run5, state_run5 = timed(phase_rl_run5, torch, conv, attention, rl, checkpoint, cfg5,
                                 source, out_dir)
-    torch.cuda.empty_cache()
-    spatio5 = timed(phase_spatio5, torch, conv, attention, rl, cfg5, video5, org5, masks5)
     torch.cuda.empty_cache()
     eval5 = timed(phase_eval5, torch, conv, attention, evaluate, rl, cfg5, state_run5, source,
                   out_dir)
@@ -3761,12 +3151,11 @@ def main() -> int:
     pipe = timed(phase_pipeline, torch, conv, attention, pipeline, pretrain_local, imitation, rl,
                  evaluate, here, out_dir)
     torch.cuda.empty_cache()
-    train5_pi1 = timed(phase_train5_pi1, torch, conv, attention, rl, cfg5, video5, org5, masks5,
-                       train5)
+    train5_pi1 = timed(phase_train5_pi1, torch, conv, attention, rl, cfg5, video5, org5, masks5)
     torch.cuda.empty_cache()
     rl_run5_pi1 = timed(phase_rl_run5_pi1, torch, conv, attention, rl, checkpoint, cfg5,
                         ClipSource(video5, org5, masks5), here, out_dir, rl_run5)
-    del video5, org5, masks5, u8_5, state_run5, state5
+    del video5, org5, masks5, u8_5, state_run5
     torch.cuda.empty_cache()
     frame_tree, tree = timed(phase_frame_tree, torch, native_loader, dataset, Config, out_dir)
     folder_rl = timed(phase_folder_rl, torch, conv, attention, Config, rl, dataset, profiling,
@@ -3776,8 +3165,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     blocks_moe = timed(phase_blocks_moe, torch, conv, attention, flax_init_state)
     torch.cuda.empty_cache()
-    u8_5, (video5, org5), masks5, _ = config5_clips(torch, np, synthetic, cfg5)
-    train5_moe = timed(phase_train5_moe, torch, conv, attention, rl, cfg5, video5, org5, train5)
+    u8_5, (video5, org5), masks5 = config5_clips(torch, np, synthetic, cfg5)
+    train5_moe = timed(phase_train5_moe, torch, conv, attention, rl, cfg5, video5, org5)
     torch.cuda.empty_cache()
     s2d = timed(phase_s2d, torch, Config, flax_init_state)
     torch.cuda.empty_cache()
@@ -3787,120 +3176,12 @@ def main() -> int:
     model_axis = timed(phase_model_axis, torch, conv, attention, rl, cfg5, video5, org5, masks5)
     torch.cuda.empty_cache()
     pipelined5 = timed(phase_pipelined5, torch, conv, attention, rl, profiling, cfg5, video5,
-                       org5, out_dir, profile5)
+                       org5, out_dir)
 
-    # one row per kernel, launches from the config-5 train run (warm-up +
-    # timed steps); K1's times are per UNet call (conv3 + conv4 + conv5 at
-    # batch 8, 256^2), K2-K4's per call at the PPO shape (512,4,256,64)
-    total = {k: sum(r[k] for r in rows) for k in (
-        "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
-    ppo = attn["ppo"]
-    kernels = [dict(
-        name="fused_conv3x3", route="cuda",
-        source="rovr_torch/csrc/fused_conv3x3.cu",
-        replaces="rovr_tpu/ops/pallas/conv.py:104",
-        launches=train5["launches"]["K1"], max_abs_err=k1_err,
-        ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
-        bound_by="operations" if all(r["bound_by"] == "operations" for r in rows)
-        else "bytes",
-        library_ms=total["library_ms"],
-        device_ms=total["device_ms"], library_device_ms=total["library_device_ms"],
-        per="one UNet call: conv3 + conv4 + conv5 at batch 8, 256^2 frames; ms and "
-            "library_ms: CUDA events over 20 calls, as for K2-K4; device_ms and "
-            "library_device_ms: the profiler's device time of the same calls; "
-            "library: cuDNN conv2d + bias + ReLU",
-        design="implicit GEMM: 4-D TMA boxes of the unpadded NHWC input (128-pixel "
-               "spatial tile, zero-filled halo) and 3-D boxes of the HWIO weights, "
-               "128B swizzle, 4-stage mbarrier ring, wgmma m64n256k16 bf16 -> f32 in "
-               "two consumer warpgroups, bias + ReLU on the accumulators",
-        backward="cuDNN's conv gradient in bf16 (fused_conv3x3_backward, stock PyTorch, "
-                 "not a kernel port), per pretrain UNet call at batch 24, 256^2",
-        backward_max_abs_err=k1_bwd_err,
-        **{f"backward_{key}": sum(r[key] for r in k1_bwd) for key in (
-            "ms", "device_ms", "cudnn_fwd_bwd_ms", "cudnn_fwd_bwd_device_ms",
-            "old_plain_autograd_ms", "bound_ms")},
-    )]
-    for kid, kname, fn, line, lib_what in (
-            ("K2", "flash_attention_fwd", "fwd", 94, "F.scaled_dot_product_attention forward"),
-            ("K3", "flash_attention_dq", "dq", 184,
-             "SDPA backward (fwd+bwd minus fwd), dq, dk and dv together"),
-            ("K4", "flash_attention_dkv", "dkv", 217,
-             "SDPA backward (fwd+bwd minus fwd), dq, dk and dv together")):
-        lib = "fwd" if fn == "fwd" else "bwd"
-        kernels.append(dict(
-            name=kname, route="cuda", source="rovr_torch/csrc/flash_attention.cu",
-            replaces=f"rovr_tpu/ops/pallas/attention.py:{line}",
-            launches=train5["launches"][kid], max_abs_err=attn_err[fn],
-            ms=ppo["ms"][fn], plain_ms=ppo["plain_ms"][fn], bound_ms=ppo["bound_ms"][fn],
-            bound_by=ppo["bound_by"][fn], library_ms=ppo["sdpa_ms"][lib],
-            device_ms=ppo["device_ms"][fn], library_device_ms=ppo["sdpa_device_ms"][lib],
-            per="one call at the PPO shape (512,4,256,64) bf16; ms and library_ms: CUDA "
-                "events over 10 calls; device_ms and library_device_ms: the profiler's "
-                "device time of the same calls; library: " + lib_what,
-        ))
-    kernels[1].update(
-        mma_ms=ppo["ms"]["fwd_mma"], mma_device_ms=ppo["device_ms"]["fwd_mma"],
-        design="persistent blocks over (head, 128-query-row) items (64 rows when few "
-               "heads); one producer thread keeps TMA loads of Q (two buffers) and of the "
-               "head's K/V (3-D maps, 128B swizzle, zero-filled past L and D) in a 4-stage "
-               "mbarrier ring; two consumer warpgroups run S = Q K^T and O += P V as wgmma "
-               "(P bf16 from registers, V MN-major), online softmax in f32 registers; O "
-               "stored by TMA from a swizzled staging tile")
-    kernels[2].update(
-        mma_ms=ppo["ms"]["dq_mma"], mma_device_ms=ppo["device_ms"]["dq_mma"],
-        design="persistent blocks over (head, 128-query-row) items (64 rows when few heads); "
-               "each item's Q and dO by TMA (two buffers), the head's K/V streamed by one "
-               "producer thread through a 4-stage mbarrier ring; two consumer warpgroups run "
-               "S = Q K^T and dP = dO V^T as wgmma from shared memory, P and dS in f32 "
-               "registers, dQ += dS K as wgmma (dS bf16 from registers, K MN-major); dQ "
-               "stored by TMA from a swizzled staging tile")
-    kernels[3].update(
-        mma_ms=ppo["ms"]["dkv_mma"], mma_device_ms=ppo["device_ms"]["dkv_mma"],
-        design="persistent blocks over (head, 128-key-row) items (64 rows when few heads); "
-               "each item's K and V by TMA (two buffers), the head's Q, dO, LSE and delta "
-               "streamed by one producer thread through a 4-stage mbarrier ring; two consumer "
-               "warpgroups run S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory, "
-               "P^T and dS^T in f32 registers, dV += P^T dO and dK += dS^T Q as wgmma (bf16 "
-               "from registers, dO and Q MN-major); dK and dV stored by TMA")
-    for row in kernels[1:]:
-        row["per"] += ("; mma_ms and mma_device_ms: the mma.sync kernel of the first port on "
-                       "the same inputs, by its test hook")
-    kernels.append(dict(
-        name="corr_lookup", route="cuda", source="rovr_torch/csrc/corr_lookup.cu",
-        replaces="none (rovr_tpu/models/raft.py lookup_corr: one-hot products, XLA's)",
-        launches_per_spatio_step=spatio5["lookup_launches"],
-        max_abs_err=lookup["bf16"]["max_abs_err"], ms=lookup["ms"],
-        plain_ms=lookup["plain_ms"], bound_ms=lookup["bound_ms"], bound_by="bytes",
-        device_ms=lookup["device_ms"], plain_device_ms=lookup["plain_device_ms"],
-        per="one call at RAFT's main shape (128 pairs, 32 x 32 positions, levels "
-            "32/16/8/4), bf16 out; ms: CUDA events over 20 calls; device_ms: the "
-            "profiler's device time of the same calls",
-        design="a thread per (position, level, tap row): two rows of 9 values in "
-               "registers, 7 taps from them; 8 positions a block, outputs staged in "
-               "shared memory and stored 16 bytes at a time"))
-    # launches per pretrain step (Config(), batch 24) and per imitation step
-    # (Config()'s canvas policy; the pipeline config's attention policy)
-    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):
-        row["launches_per_pretrain_step"] = pretrain["launches_per_step"].get(kid, 0)
-        row["launches_per_imitation_step"] = {
-            name: r["launches_per_step"][kid] for name, r in imitate.items()}
-    kernels[0]["backward_calls_per_pretrain_step"] = pretrain["launches_per_step"]["K1_backward"]
-    for row, kid in zip(kernels, ("K1", "K2", "K3", "K4")):   # phases 20, 25, 26, 28
-        row["launches_per_pi1_step"] = train5_pi1["launches_per_step"][kid]
-        row["launches_per_decoder_fwd_bwd"] = blocks_moe["decoder"]["launches"][kid]
-        row["launches_per_moe_step"] = train5_moe["launches_per_step"][kid]
-        row["launches_per_dp1_step"] = dp1["launches"][kid]
-        row["launches_per_model_axis_step"] = {
-            path: model_axis[path]["launches"][kid] for path in MODEL_AXIS_PATHS}
-        row["launches_per_pipelined_step"] = pipelined5["chain"][0]["launches"][kid]
+    kernels = kernels_line(k1, k1_bwd, attn, lookup)
     record = dict(card=card, kind=kind, torch=torch.__version__, build_s=build_s,
-                  ptxas=ptxas, k1=rows, k1_backward=k1_bwd, attention=attn,
-                  corr_lookup=lookup, unet=unet,
-                  serving=serving,
-                  profile=profile, rollout_rewards=rewards, policy5=policy,
-                  setup5_s=setup5_s, source5_s=source5_s, serving5=serving5,
-                  train5=train5, split_train5=split5, profile_train5=profile5,
-                  rl_run5=rl_run5, spatio5=spatio5, eval5=eval5, cli=cli_res,
+                  ptxas=ptxas, k1=k1, k1_backward=k1_bwd, attention=attn,
+                  corr_lookup=lookup, serve=serve, rl_run5=rl_run5, eval5=eval5, cli=cli_res,
                   source=source, pretrain=pretrain, imitation=imitate, pipeline=pipe,
                   train5_pi1=train5_pi1, rl_run5_pi1=rl_run5_pi1, frame_tree=frame_tree,
                   folder_rl=folder_rl, convert=convert_res, blocks_moe=blocks_moe,

@@ -24,7 +24,7 @@ leaves by a TMA store.
 K3 (`flash_dq_tma_kernel`, replacing `_dq_kernel`) and K4
 (`flash_dkv_tma_kernel`, replacing `_dkv_kernel`) take the same D and the
 same plan, bound by bytes as K2 is (52-69 GFLOP on 340-407 MB at the PPO
-shape, `attention_cost` in chip_smoke.py): persistent blocks over (head,
+shape, `attention_cost` in h100bench/work.py): persistent blocks over (head,
 query tile) items for K3 and (head, key tile) items for K4; each item's Q
 and dO (K3) or K and V (K4) arrive once by TMA, and one producer thread
 streams the head's K and V (K3) or Q, dO, LSE and delta (K4) through an

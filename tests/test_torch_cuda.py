@@ -10,8 +10,10 @@ machine that has neither JAX nor the repo's test conftest:
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 The unmarked tests (which K2, K3 and K4 kernel a head dim gets, and the
-wrappers' argument checks) run anywhere. chip_smoke.py makes the same kernel-vs-plain
-checks at the main paths' full-size shapes.
+wrappers' argument checks) run anywhere. This file is where the kernels are
+held against their plain twins on the card, at the main paths' full-size
+shapes among others, ragged ones and the routes the profiler saw;
+chip_smoke.py holds them again only at the shapes it times.
 """
 
 import numpy as np
@@ -55,6 +57,9 @@ K2_SHAPES = {
     "wide_Lq300_Lk77": ((40, 4, 300, 77, 64), "tma"),
     "L70_D20": ((1, 2, 70, 70, 20), "mma"),            # D % 8 != 0
     "L64_D136": ((1, 1, 64, 64, 136), "mma"),          # D > 128
+    "ppo": ((512, 4, 256, 256, 64), "tma"),            # a config-5 PPO epoch's call
+    "imitation": ((20, 4, 80, 80, 64), "tma"),         # the pipeline's imitation, 20 x 4 tokens
+    "rollout160": ((4, 4, 80, 80, 64), "tma"),         # the pipeline's rollout, batch 4
 }
 KERNEL_NAME = {"tma": "flash_fwd_tma_kernel", "mma": "flash_fwd_kernel"}
 
@@ -74,6 +79,9 @@ BWD_SHAPES = {
     "wide_L130": ((64, 4, 130, 130, 64), "tma"),       # a warpgroup's rows all past L
     "L70_D20": ((1, 2, 70, 70, 20), "mma"),            # D % 8 != 0
     "L64_D136": ((1, 1, 64, 64, 136), "mma"),          # D > 128
+    "ppo": ((512, 4, 256, 256, 64), "tma"),            # a config-5 PPO epoch's call
+    "imitation": ((20, 4, 80, 80, 64), "tma"),         # the pipeline's imitation, 20 x 4 tokens
+    "rollout160": ((4, 4, 80, 80, 64), "tma"),         # the pipeline's rollout, batch 4
 }
 BWD_KERNEL_NAME = {
     "dq": {"tma": "flash_dq_tma_kernel", "mma": "flash_dq_kernel"},
@@ -473,10 +481,12 @@ def _conv_inputs(seed, b, h, w, cin, cout):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda):
     """On the card: K1 against the plain version on the same bf16 inputs at
-    conv3's and conv4's widths, ragged shapes (Cin = 72, odd H and W, W = 32
-    under the 4 x 32 tile) and the backward check's shape."""
-    for shape in [(2, 64, 64, 128, 256), (2, 32, 32, 256, 512), (1, 37, 29, 72, 40),
-                  (2, 30, 32, 72, 200), (2, 9, 7, 16, 24)]:
+    conv3's, conv4's and conv5's widths, the pipeline rollout's 40^2 map,
+    ragged shapes (Cin = 72, odd H and W, W = 32 under the 4 x 32 tile) and
+    the backward check's shape."""
+    for shape in [(2, 64, 64, 128, 256), (2, 32, 32, 256, 512), (2, 64, 64, 512, 256),
+                  (4, 40, 40, 128, 256), (1, 37, 29, 72, 40), (2, 30, 32, 72, 200),
+                  (2, 9, 7, 16, 24)]:
         x, k, bias = _conv_inputs(6, *shape)
         xc = torch.from_numpy(x).cuda().bfloat16()
         kc = torch.from_numpy(k).cuda().bfloat16()
